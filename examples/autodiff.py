@@ -2,7 +2,7 @@
 
 Uses the framework's custom VJPs (ops/autodiff.py) to tune a matrix so its
 Perron eigenvalue hits a target — a capability with no analog in the
-reference, falling out of the TPU-first functional design.
+reference, falling out of the functional design.
 
 Run: python examples/autodiff.py
 """
@@ -16,7 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu.ops.autodiff import eigenpair, eigenvalue
+from eigen_value.ops.autodiff import eigenpair, eigenvalue
 
 
 def main() -> None:
@@ -50,8 +50,8 @@ def main() -> None:
 
     # Matrix-free: differentiate λ of a Hankel OPERATOR w.r.t. its O(n)
     # profile — the n² matrix never exists, forward or backward.
-    from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-    from eigen_value_tpu.ops.structured import hankel_matvec
+    from eigen_value.ops.autodiff import eigenvalue_operator
+    from eigen_value.ops.structured import hankel_matvec
 
     n = 256
     h0 = jnp.asarray(1.0 / np.arange(1, 2 * n, dtype=np.float32))  # Hilbert

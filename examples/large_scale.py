@@ -1,12 +1,14 @@
-"""Large-dim single-chip validation: dims the reference never reached.
+"""Large-dim single-device validation: dims the reference never reached.
 
 The matvec (power) form never writes A, so the max solvable dim is set by
-ONE resident copy of the matrix: 32768² float32 (4 GB) and 65536² bfloat16
-(8 GB) both fit a 16 GB chip.  The Hilbert matrix is generated on device
-(fused iota — no 4 GB host transfer).
+ONE resident copy of the matrix: 65536² float32 (16 GiB) and 65536²
+bfloat16 (8 GiB) both fit an 80 GB H100.  The Hilbert matrix is generated
+on device (fused iota — no host transfer).  The default path is dense
+XLA (``backend="auto"``); on a GPU, ``--symmetric`` declares the matrix
+symmetric and runs the upper-triangle kernel instead.
 
-Run on a TPU (several seconds per solve):
-    python examples/large_scale.py [--dim 32768] [--bf16-dim 65536]
+Run on a GPU (well under a second per solve once compiled):
+    python examples/large_scale.py [--dim 65536] [--bf16-dim 65536] [--symmetric]
 """
 
 import os as _os, sys as _sys
@@ -21,14 +23,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu import SolverConfig, fixtures, max_eigenvalue
+from eigen_value import SolverConfig, fixtures, max_eigenvalue
 
 
-def solve_on_device(n: int, storage_dtype=None) -> None:
-    cfg = SolverConfig(storage_dtype=storage_dtype)
-    # Generate directly in the storage dtype: at 65536² the float32 copy
-    # (16 GB) would not fit — the bf16 matrix (8 GB) is the only copy ever
-    # materialized (max_eigenvalue skips the f32 round-trip for
+def solve_on_device(n: int, storage_dtype=None, symmetric: bool = False) -> None:
+    cfg = SolverConfig(storage_dtype=storage_dtype, symmetric=symmetric)
+    # Generate directly in the storage dtype: the bf16 matrix is the only
+    # copy ever materialized (max_eigenvalue skips the f32 round-trip for
     # already-quantized inputs).
     H = jax.block_until_ready(
         fixtures.hilbert_matrix(n, dtype=storage_dtype or jnp.float32)
@@ -52,12 +53,13 @@ def solve_on_device(n: int, storage_dtype=None) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--dim", type=int, default=32768)
+    p.add_argument("--dim", type=int, default=65536)
     p.add_argument("--bf16-dim", type=int, default=65536)
     p.add_argument("--skip-bf16", action="store_true")
+    p.add_argument("--symmetric", action="store_true")
     args = p.parse_args()
 
-    solve_on_device(args.dim)
+    solve_on_device(args.dim, symmetric=args.symmetric)
     if not args.skip_bf16:
         solve_on_device(args.bf16_dim, storage_dtype=jnp.bfloat16)
 

@@ -30,8 +30,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu import fixtures, max_eigenvalue, max_eigenvalue_operator
-from eigen_value_tpu.ops.structured import hilbert_matvec
+from eigen_value import fixtures, max_eigenvalue, max_eigenvalue_operator
+from eigen_value.ops.structured import hilbert_matvec
 
 
 def main() -> None:
@@ -65,9 +65,9 @@ def main() -> None:
     jax.block_until_ready(solve())
     print(f"full operator solve wall: {(time.perf_counter() - t0) * 1e3:.2f} ms")
 
-    # Kronecker structure: B ⊗ C as two MXU matmuls — compute-dense,
+    # Kronecker structure: B ⊗ C as two matmuls — compute-dense,
     # never materialized; λ_max factorizes as λ_max(B)·λ_max(C).
-    from eigen_value_tpu.ops.structured import kron_matvec
+    from eigen_value.ops.structured import kron_matvec
 
     rng = np.random.default_rng(7)
     B = jnp.asarray(rng.random((32, 32), dtype=np.float32) + 0.1)
@@ -86,8 +86,8 @@ def main() -> None:
     # compute; convergence_report turns the history into the subdominant
     # ratio |λ₂/λ₁| (= digits gained per round), and refine_eigenpair
     # polishes the f32 result to float64 accuracy on the host.
-    from eigen_value_tpu.ops.solver_matvec import solve_operator_traced
-    from eigen_value_tpu.ops.spectral import convergence_report, refine_eigenpair
+    from eigen_value.ops.solver_matvec import solve_operator_traced
+    from eigen_value.ops.spectral import convergence_report, refine_eigenpair
 
     res_t, hist = jax.jit(
         lambda: solve_operator_traced(mv, n, 1e-6, 200)
@@ -111,7 +111,7 @@ def main() -> None:
         # refined dominant pair + device power iteration gives λ₂ itself.
         # Passing the RefinedPair reuses the polish paid above (the f64
         # host refinement is the expensive half at this n).
-        from eigen_value_tpu.ops.spectral import subdominant_eigenpair
+        from eigen_value.ops.spectral import subdominant_eigenpair
 
         sub = subdominant_eigenpair(A64, ref)
         print(

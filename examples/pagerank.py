@@ -28,8 +28,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu import max_eigenvalue, max_eigenvalue_operator
-from eigen_value_tpu.ops.structured import (
+from eigen_value import max_eigenvalue, max_eigenvalue_operator
+from eigen_value.ops.structured import (
     add_matvec,
     ell_from_coo,
     ell_matvec,

@@ -1,4 +1,4 @@
-"""Quickstart: the reference wrapper's workflow, TPU-native.
+"""Quickstart: the reference wrapper's workflow, in JAX.
 
 Mirrors the reference's wrapper/python/test.py (4 rounds on a random
 positive 1024² float32 matrix, asserting A·v ≈ λ·v) plus the functional
@@ -15,7 +15,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from eigen_value_tpu import EigenValue, SolverConfig, max_eigenvalue
+from eigen_value import EigenValue, SolverConfig, max_eigenvalue
 
 
 def main() -> None:
@@ -42,12 +42,13 @@ def main() -> None:
     res16 = max_eigenvalue(mat, SolverConfig(storage_dtype=jnp.bfloat16))
     print(f"bf16 fast mode: λ = {float(res16.eigenvalue):.5f}")
 
-    # ── symmetric fast path (the bench headline backend) ────────────────
-    # For a symmetric matrix, DECLARE it (BLAS-symv-style promise) and
-    # the solver streams only the upper triangle, holding most of it
-    # VMEM-resident on TPU (SolverConfig.cache_tiles auto-sizes).  Or
-    # just pass validate=True: a matrix that checks bitwise symmetric on
-    # device is promoted to the same path automatically.
+    # ── symmetric fast path ─────────────────────────────────────────────
+    # For a symmetric matrix, DECLARE it (BLAS-symv-style promise): on a
+    # GPU the solver then reads only the upper triangle (the Pallas
+    # kernel ops/pallas/kernels.symv); elsewhere the dense path keeps the
+    # job with the same answer.  Or just pass validate=True: on a GPU a
+    # matrix that checks bitwise symmetric on device is promoted to the
+    # same path automatically.
     sym = jnp.asarray((mat + mat.T) / 2)
     res_sym = max_eigenvalue(sym, SolverConfig(symmetric=True))
     res_val = max_eigenvalue(sym, validate=True)  # checked + auto-promoted

@@ -1,6 +1,6 @@
 // Native C++ runtime component: CPU oracle + C ABI layer.
 //
-// TPU-native equivalent of the reference's L3 FFI surface
+// Equivalent of the reference's L3 FFI surface
 // (wrapper/similarity_transform.cpp: extern "C" make_queue /
 // max_eigen_value) and of its host-side orchestrator semantics
 // (similarity_transform.cpp:5-75).  Role in this framework:

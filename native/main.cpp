@@ -4,7 +4,7 @@
 // fixed-width report format so tables diff side-by-side.
 //
 // Build + run:  make -C native run && ./native/run
-// (The JAX/TPU counterpart is `python -m eigen_value_tpu.bench`.)
+// (The JAX counterpart is `python -m eigen_value.bench`.)
 
 #include <cstdint>
 #include <cstdio>

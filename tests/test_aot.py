@@ -1,11 +1,12 @@
-"""Persistent compilation cache (the reference's AOT-target analog)."""
+"""Persistent compilation cache and exported artifacts (the reference's
+AOT-target analog)."""
 
 import os
 
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu.utils import aot
+from eigen_value.utils import aot
 
 
 class TestExportArtifact:
@@ -15,7 +16,7 @@ class TestExportArtifact:
     def test_roundtrip_matches_direct_solve(self, tmp_path):
         import numpy as np
 
-        from eigen_value_tpu import fixtures, max_eigenvalue
+        from eigen_value import fixtures, max_eigenvalue
 
         exp = aot.export_solver(128)
         path = aot.save_exported(exp, str(tmp_path / "solver_128.bin"))
@@ -32,32 +33,36 @@ class TestExportArtifact:
         )
 
     def test_cross_platform_artifact_from_cpu_host(self, tmp_path):
-        """A TPU+CPU artifact can be produced on a CPU-only build machine
+        """A CUDA+CPU artifact can be produced on a CPU-only build machine
         (the reference cross-compiles AOT targets the same way) and still
         executes on the CPU platform."""
-        from eigen_value_tpu import fixtures
+        from eigen_value import fixtures
 
-        exp = aot.export_solver(128, platforms=("tpu", "cpu"))
-        assert tuple(exp.platforms) == ("tpu", "cpu")
+        exp = aot.export_solver(128, platforms=("cuda", "cpu"))
+        assert tuple(exp.platforms) == ("cuda", "cpu")
         loaded = aot.load_exported(
-            aot.save_exported(exp, str(tmp_path / "solver_tpu_cpu.bin"))
+            aot.save_exported(exp, str(tmp_path / "solver_cuda_cpu.bin"))
         )
         got = loaded.call(fixtures.hilbert_matrix(128))
         assert int(got.rounds) == fixtures.HILBERT_ROUNDS[128]
 
-    def test_pallas_production_backend_cross_lowers_to_tpu(self):
-        """The compiled-Mosaic production solver (matvec_pallas,
-        interpret=False) exports as a TPU artifact from this CPU-only
-        host — serving artifacts for the chip can be built anywhere."""
-        from eigen_value_tpu.config import SolverConfig
+    def test_symmetric_kernel_cross_lowers_to_cuda(self):
+        """The compiled symmetric kernel (Triton, interpret=False) exports
+        as a CUDA artifact from this CPU-only host — serving artifacts for
+        the card can be built anywhere — while asking for it in a CPU
+        artifact is an error."""
+        import pytest
 
-        cfg = SolverConfig(backend="matvec_pallas", interpret=False)
-        exp = aot.export_solver(1024, cfg, platforms=("tpu",))
-        assert tuple(exp.platforms) == ("tpu",)
+        from eigen_value.config import SolverConfig
+
+        cfg = SolverConfig(symmetric=True, backend="matvec")
+        exp = aot.export_solver(1024, cfg, platforms=("cuda",))
+        assert tuple(exp.platforms) == ("cuda",)
         assert len(exp.serialize()) > 0
-        # mosaic kernels are embedded as custom calls; the artifact is
-        # only runnable on a real TPU, so execution is covered by the
-        # hardware suite, not here.
+        # the Triton kernel is embedded as a custom call; the artifact
+        # runs only on a GPU, so execution is covered by test_gpu_hw.py.
+        with pytest.raises(ValueError, match="GPU"):
+            aot.export_solver(1024, cfg, platforms=("cpu",))
 
     def test_sharded_artifact_roundtrip(self, tmp_path):
         """Multi-chip serving: an 8-device row-sharded solver artifact
@@ -66,9 +71,9 @@ class TestExportArtifact:
 
         from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-        from eigen_value_tpu import fixtures
+        from eigen_value import fixtures
 
-        from eigen_value_tpu import max_eigenvalue
+        from eigen_value import max_eigenvalue
 
         devs = jax.devices("cpu")[:8]
         mesh = Mesh(np.array(devs), ("rows",))
@@ -91,24 +96,21 @@ class TestExportArtifact:
         )
 
     def test_sharded_cross_platform_artifact(self):
-        """A TPU+CPU sharded artifact from the CPU-only host: pass
-        use_pallas=False so the local matvec suits both target platforms
-        (auto-detection would bake interpret-mode Pallas, unserializable)."""
+        """A CUDA+CPU sharded artifact from the CPU-only host (the sharded
+        bodies run no kernel, so one artifact serves both)."""
         import numpy as np
 
         from jax.sharding import Mesh
 
         mesh = Mesh(np.array(jax.devices("cpu")[:8]), ("rows",))
-        exp = aot.export_sharded_solver(
-            1024, mesh, platforms=("tpu", "cpu"), use_pallas=False
-        )
-        assert tuple(exp.platforms) == ("tpu", "cpu")
+        exp = aot.export_sharded_solver(1024, mesh, platforms=("cuda", "cpu"))
+        assert tuple(exp.platforms) == ("cuda", "cpu")
         assert exp.nr_devices == 8
 
     def test_artifact_pins_shape(self):
         import pytest
 
-        from eigen_value_tpu import fixtures
+        from eigen_value import fixtures
 
         exp = aot.export_solver(128)
         with pytest.raises(ValueError):
@@ -127,8 +129,8 @@ class TestExportArtifact:
         )
         code = f"""
 import numpy as np
-from eigen_value_tpu.utils import aot
-from eigen_value_tpu import fixtures
+from eigen_value.utils import aot
+from eigen_value import fixtures
 r = aot.load_exported({path!r}).call(np.asarray(fixtures.hilbert_matrix(128)))
 print(int(r.rounds))
 """
@@ -147,7 +149,7 @@ def test_persistent_cache_writes_entries(tmp_path):
     path = str(tmp_path / "xla-cache")
     try:
         assert aot.enable_persistent_cache(path) == path
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec
+        from eigen_value.ops.solver_matvec import solve_matvec
 
         res = jax.jit(lambda A: solve_matvec(A, eps=1e-3, max_itr=1000))(
             jnp.full((64, 64), 0.5, jnp.float32)
@@ -155,5 +157,34 @@ def test_persistent_cache_writes_entries(tmp_path):
         jax.block_until_ready(res)
         entries = os.listdir(path)
         assert entries, "no cache entries written"
+    finally:
+        aot.disable_persistent_cache()
+
+
+def test_cache_dir_choice(tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the fixed
+    .jax_cache/ in the checkout — never a path made from a temp name, a
+    pid or the time."""
+    assert aot.cache_dir({"JAX_COMPILATION_CACHE_DIR": str(tmp_path)}) == str(
+        tmp_path
+    )
+    default = aot.cache_dir({})
+    assert default == aot.CHECKOUT_CACHE_DIR
+    assert os.path.basename(default) == ".jax_cache"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert os.path.dirname(default) == repo
+    assert aot.cache_dir({"JAX_COMPILATION_CACHE_DIR": ""}) == default
+
+
+def test_enable_cache_honors_env_dir(tmp_path, monkeypatch):
+    """With the variable set, no directory is set in code: JAX's own
+    config keeps the one it read from the environment."""
+    env_dir = str(tmp_path / "from-env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert aot.enable_persistent_cache() == env_dir
+        assert jax.config.jax_compilation_cache_dir == before
+        assert os.path.isdir(env_dir)
     finally:
         aot.disable_persistent_cache()

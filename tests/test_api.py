@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from eigen_value_tpu import (
+from eigen_value import (
     EigenValue,
     SolverConfig,
     max_eigenvalue,
     max_eigenvalue_batch,
 )
-from eigen_value_tpu.api import pick_block, resolve_backend
+from eigen_value.api import resolve_backend, uses_symmetric_kernel
 
 
 def test_eigenvalue_class_return_shape(rng):
@@ -97,123 +97,118 @@ def test_bf16_storage_config(rng):
     assert abs(lam - float(want.eigenvalue)) < 2e-3 * lam
 
 
-def test_pick_block():
-    assert pick_block(8192, 256) == 256
-    assert pick_block(384, 256) == 128
-    assert pick_block(128, 512) == 128
-    assert pick_block(3, 256) is None
+def test_symmetric_kernel_routing():
+    """symmetric=True is honored with the kernel by explicit matvec /
+    multiround backends; under auto the kernel is taken on a GPU with f32
+    storage, or when the caller asks for the interpreter — never chosen
+    for a caller on another platform."""
+    import types
+
+    import jax.numpy as jnp
+
+    gpu = types.SimpleNamespace(platform="gpu")
+    cpu = types.SimpleNamespace(platform="cpu")
+    assert not uses_symmetric_kernel(SolverConfig(), gpu)
+    assert uses_symmetric_kernel(SolverConfig(symmetric=True), gpu)
+    assert not uses_symmetric_kernel(SolverConfig(symmetric=True), cpu)
+    assert uses_symmetric_kernel(
+        SolverConfig(symmetric=True, interpret=True), cpu
+    )
+    # bf16 storage: the dense storage product measured faster than the
+    # kernel, so auto keeps the job dense even on a GPU
+    assert not uses_symmetric_kernel(
+        SolverConfig(symmetric=True, storage_dtype=jnp.bfloat16), gpu
+    )
+    # an explicit backend honors the declaration wherever it runs
+    assert uses_symmetric_kernel(
+        SolverConfig(symmetric=True, backend="multiround"), cpu
+    )
 
 
 def test_backend_resolution():
-    cfg = SolverConfig(backend="auto")
-    # 3×3 anchor must fall back to the unaligned jnp matvec path
-    assert resolve_backend(cfg, 3) == "matvec"
-    assert resolve_backend(SolverConfig(backend="xla"), 8192) == "xla"
-    assert resolve_backend(SolverConfig(backend="pallas"), 8192) == "pallas"
+    # auto is the dense XLA matvec-form solve, whatever the platform
+    assert resolve_backend(SolverConfig(backend="auto")) == "matvec"
+    assert resolve_backend(SolverConfig(backend="xla")) == "xla"
+    assert resolve_backend(SolverConfig(backend="multiround")) == "multiround"
 
 
 def test_auto_backend_nonpow2_aligned_dims(rng):
-    """128-aligned dims NOT divisible by the default 256/512 blocks (384,
-    640, ...) must route through matvec_pallas with an adapted tile shape
-    instead of crashing on the kernel's divisibility assert."""
-    mat = rng.random((384, 384), dtype=np.float32) + 1e-4
-    # pin the routing itself: if auto stopped resolving to the Pallas
-    # backend here, the adapted-tile path would silently go untested
-    assert (
-        resolve_backend(SolverConfig(backend="auto", interpret=True), 384)
-        == "matvec_pallas"
-    )
-    res = max_eigenvalue(mat, SolverConfig(backend="auto", interpret=True))
-    ref = max_eigenvalue(mat, SolverConfig(backend="matvec"))
-    assert int(res.rounds) == int(ref.rounds)
-    assert float(res.eigenvalue) == pytest.approx(float(ref.eigenvalue), abs=1e-3)
-    v = np.asarray(res.eigenvector)
-    assert np.allclose(mat @ v, float(res.eigenvalue) * v, atol=1e-3)
+    """Dims that are not multiples of the kernel's power-of-two tile (384,
+    1000) run the symmetric kernel with masked edge tiles and agree with
+    the dense solve."""
+    for n in (384, 1000):
+        m = rng.random((n, n), dtype=np.float32) + 1e-4
+        mat = (m + m.T) / 2
+        res = max_eigenvalue(mat, SolverConfig(symmetric=True, interpret=True))
+        ref = max_eigenvalue(mat, SolverConfig(backend="matvec"))
+        assert abs(int(res.rounds) - int(ref.rounds)) <= 1
+        assert float(res.eigenvalue) == pytest.approx(
+            float(ref.eigenvalue), rel=1e-5
+        )
+        v = np.asarray(res.eigenvector)
+        assert np.allclose(mat @ v, float(res.eigenvalue) * v, atol=1e-3 * n)
 
 
 def test_resolve_backend_honors_pinned_device_platform():
-    """A pinned device's platform must drive backend resolution — not the
-    global default platform (regression: TPU-default host + CPU-pinned
-    EigenValue picked matvec_pallas with interpret=False and failed)."""
+    """A pinned device's platform, not the default one, decides whether the
+    kernel can run: a GPU-pinned solve takes it, a CPU-pinned one keeps
+    the dense product (and an explicit kernel request there raises)."""
     import types
 
-    cfg = SolverConfig(backend="auto")
-    tpu = types.SimpleNamespace(platform="tpu")
-    cpu = types.SimpleNamespace(platform="cpu")
-    assert resolve_backend(cfg, 256, device=tpu) == "matvec_pallas"
-    assert resolve_backend(cfg, 256, device=cpu) == "matvec"
+    from eigen_value import api as api_mod
+
+    cfg = SolverConfig(symmetric=True)
+    assert uses_symmetric_kernel(cfg, types.SimpleNamespace(platform="gpu"))
+    assert not uses_symmetric_kernel(cfg, types.SimpleNamespace(platform="cpu"))
+    with pytest.raises(ValueError, match="GPU"):
+        api_mod._solve_fn(
+            SolverConfig(symmetric=True, backend="matvec"),
+            "matvec",
+            types.SimpleNamespace(platform="cpu"),
+        )
 
 
-def test_auto_picks_multiround_at_hbm_resident_dims():
-    """VERDICT r3 item 4: the headline-winning backend must be the
-    default at the flagship dim.  Auto routes to multiround on a real
-    TPU at n ≥ MULTIROUND_MIN_DIM (6144, the measured VMEM-residency
-    cliff — the while-loop backend keeps A resident through 5120² and
-    ties multiround at 6144²: docs/bench/boundary_r5.txt), to
-    matvec_pallas below it, and NEVER under interpret mode (the
-    boundary is a hardware property)."""
-    import types
+def test_auto_picks_dense_matvec_at_every_dim():
+    """auto resolves to the dense XLA matvec-form solve at every n: on the
+    card XLA's product streams A near copy bandwidth, and no hand-written
+    dense kernel beat it end to end."""
+    from eigen_value.api import _solve_fn
+    from eigen_value.ops import solver_matvec
 
-    from eigen_value_tpu.api import MULTIROUND_MIN_DIM
-
-    cfg = SolverConfig(backend="auto")
-    tpu = types.SimpleNamespace(platform="tpu")
-    cpu = types.SimpleNamespace(platform="cpu")
-    assert MULTIROUND_MIN_DIM == 6144
-    assert resolve_backend(cfg, 8192, device=tpu) == "multiround"
-    assert resolve_backend(cfg, 6144, device=tpu) == "multiround"
-    assert resolve_backend(cfg, 16384, device=tpu) == "multiround"
-    assert resolve_backend(cfg, 4096, device=tpu) == "matvec_pallas"
-    assert resolve_backend(cfg, 5120, device=tpu) == "matvec_pallas"
-    # unaligned dims above the boundary still fall back to jnp
-    assert resolve_backend(cfg, 8192 + 64, device=tpu) == "matvec"
-    # interpret mode (CI sanitizer) keeps the single-round kernel — ON
-    # TPU TOO (review round 4: on_tpu + interpret=True slipped through
-    # to multiround, whose HBM-scale grid is pathological to interpret)
-    assert (
-        resolve_backend(SolverConfig(backend="auto", interpret=True), 8192,
-                        device=cpu)
-        == "matvec_pallas"
-    )
-    assert (
-        resolve_backend(SolverConfig(backend="auto", interpret=True), 8192,
-                        device=tpu)
-        == "matvec_pallas"
-    )
-    # explicit backend always wins over the auto policy
-    assert (
-        resolve_backend(SolverConfig(backend="matvec_pallas"), 8192, device=tpu)
-        == "matvec_pallas"
-    )
+    assert resolve_backend(SolverConfig()) == "matvec"
+    fn = _solve_fn(SolverConfig(), "matvec")
+    assert fn.func is solver_matvec.solve_matvec
 
 
 def test_validate_promotes_symmetric_to_sym_kernel(monkeypatch, rng):
-    """VERDICT r4 item 1: once validate=True has paid for the on-device
-    symmetry check at the multiround dims, a bitwise-symmetric matrix
-    routes to the upper-triangle headline kernel (bench.py's backend)
-    instead of checking and discarding the answer.  The boundary is
-    shrunk so the promotion is exercised on the CPU suite (the real
-    8192² boundary is asserted by test_auto_picks_multiround...)."""
+    """Once validate=True has paid for the on-device check, a bitwise-
+    symmetric matrix routes to the upper-triangle kernel where auto would
+    take it for a declared-symmetric input (a GPU with f32 storage).  The
+    platform is faked as a GPU and the kernel interpreted so the
+    promotion runs on the CPU suite."""
+    from dataclasses import replace
+
     import jax.numpy as jnp
 
-    import eigen_value_tpu.api as api_mod
-    from eigen_value_tpu import fixtures
+    import eigen_value.api as api_mod
+    from eigen_value import fixtures
 
     seen = {}
     orig = api_mod._solve_fn
 
-    def spy(config, backend, n=None, device=None):
+    def spy(config, backend, device=None):
         seen["symmetric"] = config.symmetric
         seen["backend"] = backend
-        return orig(config, backend, n, device)
+        if config.symmetric:
+            config = replace(config, interpret=True)
+        return orig(config, backend, device)
 
     monkeypatch.setattr(api_mod, "_solve_fn", spy)
-    monkeypatch.setattr(api_mod, "_on_tpu", lambda: True)
-    monkeypatch.setattr(api_mod, "MULTIROUND_MIN_DIM", 256)
+    monkeypatch.setattr(api_mod, "platform", lambda device=None: "gpu")
 
     H = fixtures.hilbert_matrix(256)  # symmetric by construction
     res = api_mod.max_eigenvalue(H, validate=True)
-    assert seen["backend"] == "multiround"
+    assert seen["backend"] == "matvec"
     assert seen["symmetric"] is True
     assert int(res.rounds) == fixtures.HILBERT_ROUNDS[256]
     assert bool(res.converged)
@@ -247,7 +242,7 @@ def test_storage_dtype_with_non_storage_backend_raises():
     import jax.numpy as jnp
     import pytest
 
-    from eigen_value_tpu import fixtures, max_eigenvalue
+    from eigen_value import fixtures, max_eigenvalue
 
     Hq = fixtures.hilbert_matrix(128, dtype=jnp.bfloat16)
     with pytest.raises(ValueError, match="matvec-family"):
@@ -265,7 +260,7 @@ def test_max_eigenvalue_batch_prequantized_no_f32_copy():
     exists for)."""
     import jax.numpy as jnp
 
-    from eigen_value_tpu import fixtures, max_eigenvalue_batch
+    from eigen_value import fixtures, max_eigenvalue_batch
 
     Hq = fixtures.hilbert_matrix(128, dtype=jnp.bfloat16)
     mats = jnp.stack([Hq, Hq * jnp.bfloat16(2.0)])
@@ -292,7 +287,7 @@ def test_max_eigenvalue_with_mesh():
     import jax
     from jax.sharding import Mesh
 
-    from eigen_value_tpu import fixtures
+    from eigen_value import fixtures
 
     mesh = Mesh(np.array(jax.devices("cpu")[:4]), ("rows",))
     H = fixtures.hilbert_matrix(256)
@@ -303,23 +298,22 @@ def test_max_eigenvalue_with_mesh():
     assert abs(float(got.eigenvalue) - float(want.eigenvalue)) < 1e-4
 
 
-def test_ts_ms_is_rtt_corrected(rng):
-    """ts_ms estimates DEVICE time: the per-call launch latency (measured
-    once per instance with a trivial executable) is subtracted from the
-    wall clock (VERDICT r1 item 6 — the reference times only the device
-    loop, similarity_transform.cpp:36-58)."""
-    from eigen_value_tpu.api import EigenValue
+def test_ts_ms_is_wall_time(rng):
+    """ts_ms is the host wall time of the solve call ended by
+    block_until_ready: positive, and inside the caller's own clock around
+    the whole similarity_transform (compilation happens before it)."""
+    import time
+
+    from eigen_value.api import EigenValue
 
     ev = EigenValue()
     mat = rng.random((256, 256), dtype=np.float32) + 0.5
+    ev.warmup([256])
+    t0 = time.perf_counter()
     lam, vec, ts_ms, rounds = ev.similarity_transform(mat)
-    # the subtracted launch latency is a real measured wall time of a
-    # trivial executable: strictly positive (a regression to 0.0 would
-    # silently turn ts_ms back into the uncorrected wall clock)
-    assert ev._rtt_ms is not None and ev._rtt_ms > 0.0
-    assert ev.last_wall_ms is not None
-    assert ts_ms <= ev.last_wall_ms
-    assert ts_ms == pytest.approx(max(ev.last_wall_ms - ev._rtt_ms, 0.0))
+    outer_ms = (time.perf_counter() - t0) * 1e3
+    assert 0.0 < ts_ms <= outer_ms
+    assert not hasattr(ev, "_rtt_ms")
 
 
 def test_eigen_residual_helper(rng):
@@ -327,7 +321,7 @@ def test_eigen_residual_helper(rng):
     (wrapper/python/test.py:15-16) as a public jittable helper."""
     import jax
 
-    from eigen_value_tpu import eigen_residual, max_eigenvalue
+    from eigen_value import eigen_residual, max_eigenvalue
 
     import jax.numpy as jnp
 
@@ -343,7 +337,7 @@ def test_eigen_residual_helper(rng):
 
     mesh = Mesh(np.array(jax.devices("cpu")[:4]), ("rows",))
     ms = jax.device_put(mat, NamedSharding(mesh, P("rows", None)))
-    from eigen_value_tpu.parallel import solve_sharded_matvec
+    from eigen_value.parallel import solve_sharded_matvec
 
     res_s = solve_sharded_matvec(ms, mesh)
     assert float(eigen_residual(ms, res_s)) < 1e-3
@@ -357,7 +351,7 @@ def test_concurrent_similarity_transform_threads(rng, monkeypatch):
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
-    from eigen_value_tpu import api
+    from eigen_value import api
 
     calls = []
     real = api._solve_fn
@@ -383,7 +377,7 @@ def test_public_export_surface():
     constant SolverConfig (EPS/MAX_ITR exactly the reference's
     similarity_transform.hpp:4-5 values) and SolveResult is the
     4-field namedtuple every solver returns."""
-    import eigen_value_tpu as evt
+    import eigen_value as evt
 
     for name in evt.__all__:
         assert getattr(evt, name) is not None, name
@@ -395,15 +389,12 @@ def test_public_export_surface():
     )
 
 
-def test_zero_block_sizes_rejected():
-    """Explicit block_rows=0 / block_cols=0 used to pass the modulo
-    validation (0 % k == 0) and then be silently reinterpreted as the
-    defaults by `or` fallbacks — the exact silent-drop class the config
-    contract forbids (review r5c)."""
-    with pytest.raises(ValueError, match="block_rows"):
-        SolverConfig(block_rows=0)
-    with pytest.raises(ValueError, match="block_cols"):
-        SolverConfig(block_cols=0)
+def test_removed_backends_rejected():
+    """The iterated-kernel and dense-kernel backends are gone; asking for
+    them is an error, never a silent fallback."""
+    for name in ("pallas", "matvec_pallas"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            SolverConfig(backend=name)
 
 
 def test_class_api_prequantized_no_upcast(rng):

@@ -7,7 +7,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu.ops.autodiff import eigenvalue
+from eigen_value.ops.autodiff import eigenvalue
 
 
 def test_value_matches_solver(rng):
@@ -67,7 +67,7 @@ class TestEigenpair:
         import numpy as np
         enable_x64 = jax.enable_x64
 
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value.ops.autodiff import eigenpair
 
         with enable_x64():
             A, lam_bar, v_bar, E = self._setup()
@@ -97,7 +97,7 @@ class TestEigenpair:
         import numpy as np
         enable_x64 = jax.enable_x64
 
-        from eigen_value_tpu.ops.autodiff import eigenpair, eigenvalue
+        from eigen_value.ops.autodiff import eigenpair, eigenvalue
 
         with enable_x64():
             A, _, _, _ = self._setup(seed=5)
@@ -112,8 +112,8 @@ class TestEigenpair:
     def test_normalization_max_is_one(self):
         import numpy as np
 
-        from eigen_value_tpu import fixtures
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value import fixtures
+        from eigen_value.ops.autodiff import eigenpair
 
         lam, v = eigenpair(fixtures.hilbert_matrix(128))
         assert float(np.asarray(v).max()) == pytest.approx(1.0)
@@ -128,7 +128,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value.ops.autodiff import eigenpair
 
         rng = np.random.default_rng(7)
         A = jnp.asarray(rng.random((256, 256), dtype=np.float32) + 0.1)
@@ -156,8 +156,8 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu import fixtures
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value import fixtures
+        from eigen_value.ops.autodiff import eigenpair
 
         H = fixtures.hilbert_matrix(256)
         rng = np.random.default_rng(11)
@@ -183,7 +183,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value.ops.autodiff import eigenpair
 
         rng = np.random.default_rng(13)
         A = jnp.asarray(rng.random((1024, 1024), dtype=np.float32) + 0.1)
@@ -210,7 +210,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import _solve_bordered, eigenpair
+        from eigen_value.ops.autodiff import _solve_bordered, eigenpair
 
         rng = np.random.default_rng(5)
         A = jnp.asarray(rng.random((64, 64), dtype=np.float32) + 0.1)
@@ -232,7 +232,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import eigenpair, eigenvalue
+        from eigen_value.ops.autodiff import eigenpair, eigenvalue
 
         rng = np.random.default_rng(0)
         As = jnp.asarray(rng.random((3, 32, 32), dtype=np.float32) + 0.1)
@@ -252,7 +252,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value.ops.autodiff import eigenpair
 
         rng = np.random.default_rng(7)
         As = jnp.asarray(rng.random((3, 32, 32), dtype=np.float32) + 0.1)
@@ -276,7 +276,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops.autodiff import eigenpair
+        from eigen_value.ops.autodiff import eigenpair
 
         rng = np.random.default_rng(3)
         As = jnp.asarray(rng.random((3, 16, 16), dtype=np.float32) + 0.1)
@@ -295,7 +295,7 @@ class TestEigenpair:
         import jax.numpy as jnp
         import numpy as np
 
-        from eigen_value_tpu.ops import autodiff
+        from eigen_value.ops import autodiff
 
         monkeypatch.setattr(autodiff, "_DENSE_FALLBACK_MAX_N", 4)
         rng = np.random.default_rng(11)
@@ -319,8 +319,8 @@ class TestEigenvalueOperator:
     numerator as the VJP of θ ↦ uᵀ·matvec_θ(v))."""
 
     def test_hankel_grad_matches_dense_adjoint(self, rng):
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 48
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.1)
@@ -337,8 +337,8 @@ class TestEigenvalueOperator:
         )
 
     def test_hankel_grad_matches_finite_differences(self, rng):
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 16
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.5)
@@ -356,8 +356,8 @@ class TestEigenvalueOperator:
         """λ(B ⊗ C) = λ(B)·λ(C) ⇒ ∂λ/∂B = λ(C)·∂λ(B)/∂B — the operator
         gradient (through the two-matmul matvec) must recover the dense
         factor adjoint scaled by the other factor's eigenvalue."""
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import kron_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import kron_matvec
 
         B = jnp.asarray(rng.random((8, 8), dtype=np.float32) + 0.2)
         C = jnp.asarray(rng.random((6, 6), dtype=np.float32) + 0.2)
@@ -374,8 +374,8 @@ class TestEigenvalueOperator:
         best-effort gradient: the VJP warns host-side (review finding)."""
         import jax
 
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 16
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.5)
@@ -390,8 +390,8 @@ class TestEigenvalueOperator:
     def test_converged_solve_does_not_warn(self, rng, capfd):
         import jax
 
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 16
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.5)
@@ -403,8 +403,8 @@ class TestEigenvalueOperator:
     def test_pytree_theta(self, rng):
         """theta may be any pytree: a dict of Kronecker factors gets a
         matching dict of gradients."""
-        from eigen_value_tpu.ops.autodiff import eigenvalue_operator
-        from eigen_value_tpu.ops.structured import kron_matvec
+        from eigen_value.ops.autodiff import eigenvalue_operator
+        from eigen_value.ops.structured import kron_matvec
 
         theta = {
             "B": jnp.asarray(rng.random((6, 6), dtype=np.float32) + 0.2),
@@ -428,8 +428,8 @@ class TestEigenpairOperator:
     −∂(wᵀ·matvec_θ(v))/∂θ)."""
 
     def test_value_matches_dense_pair(self, rng):
-        from eigen_value_tpu.ops.autodiff import eigenpair, eigenpair_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenpair, eigenpair_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 32
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.1)
@@ -443,8 +443,8 @@ class TestEigenpairOperator:
     def test_vjp_matches_dense_chain(self, rng):
         """Cotangents through the operator VJP must equal the dense
         eigenpair VJP chained through the explicit A(h) = h[r+c]."""
-        from eigen_value_tpu.ops.autodiff import eigenpair, eigenpair_operator
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.autodiff import eigenpair, eigenpair_operator
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 24
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.2)
@@ -464,11 +464,11 @@ class TestEigenpairOperator:
     def test_lambda_only_cotangent_matches_eigenvalue_operator(self, rng):
         """With v̄ = 0 the bordered adjoint reduces to the Perron adjoint:
         the pair VJP must agree with eigenvalue_operator's gradient."""
-        from eigen_value_tpu.ops.autodiff import (
+        from eigen_value.ops.autodiff import (
             eigenpair_operator,
             eigenvalue_operator,
         )
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 24
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.2)
@@ -484,11 +484,11 @@ class TestEigenpairOperator:
     def test_operator_vjps_compose_with_jit_and_vmap(self, rng):
         """The API claim: both operator VJPs work under jit and vmap
         (vmapped GMRES + linear_transpose included)."""
-        from eigen_value_tpu.ops.autodiff import (
+        from eigen_value.ops.autodiff import (
             eigenpair_operator,
             eigenvalue_operator,
         )
-        from eigen_value_tpu.ops.structured import hankel_matvec
+        from eigen_value.ops.structured import hankel_matvec
 
         n = 16
         h = jnp.asarray(rng.random(2 * n - 1, dtype=np.float32) + 0.5)

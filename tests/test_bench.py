@@ -6,7 +6,7 @@ import sys
 
 import pytest
 
-from eigen_value_tpu.bench import suite
+from eigen_value.bench import suite
 
 
 def test_bench_e2e_rows():
@@ -18,38 +18,35 @@ def test_bench_e2e_rows():
 
 
 def test_bench_e2e_sym_skips_unalignable_dim():
-    """A sym rung at a dim with no 128-aligned square divisor must emit
-    an explicit skip row, not crash the sweep (advisor r4: the old
-    ``or A.shape[0]`` fallback could never succeed)."""
-    rows = suite.bench_e2e([96], backends=["multiround_sym"], reps=1)
-    assert len(rows) == 1
-    assert "skipped" in rows[0] and rows[0]["dim"] == 96
-    # and the alignable path still runs (128² interpret is cheap)
-    ok = suite.bench_e2e([128], backends=["multiround_sym"], reps=1)
-    assert ok[0]["rounds"] == 9 and ok[0]["rounds_ok"]
+    """The symmetric rung runs a Pallas kernel that compiles for a GPU
+    only: off the GPU it must emit an explicit skip row, not crash the
+    sweep or fall back to the interpreter."""
+    rows = suite.bench_e2e([96, 128], backends=["symmetric"], reps=1)
+    assert len(rows) == 2
+    for r in rows:
+        assert "skipped" in r and "GPU" in r["skipped"]
+    assert [r["dim"] for r in rows] == [96, 128]
 
 
 def test_vector_kernel_rows():
     rows = suite.bench_vector_kernels(sizes=[1 << 16], k=5)
     names = {r["kernel"] for r in rows}
-    assert names == {"find_max", "eigen_vector", "stop", "stop_pallas"}
+    assert names == {"find_max", "eigen_vector", "stop"}
     assert all(r["ms"] >= 0 for r in rows)
+    # no published peak off the GPU: the roofline column is null, never
+    # a number divided by a guessed peak
+    assert all(r["roofline_pct"] is None for r in rows)
 
 
-def test_drift_rows():
-    rows = suite.bench_drift(dim=128, windows=2, gap_s=0.0, k=5)
-    timeline = [r for r in rows if r["bench"] == "drift"]
-    assert len(timeline) == 2
-    assert [r["window"] for r in timeline] == [0, 1]
-    assert timeline[0]["t_s"] <= timeline[1]["t_s"]
-    summary = rows[-1]
-    assert summary["bench"] == "drift_summary"
-    if summary["min_ms"] is not None:
-        assert summary["min_ms"] <= summary["max_ms"]
-        assert summary["spread_pct"] >= 0
-    # every row must be RFC-valid JSON (nulls, never NaN/Infinity —
-    # allow_nan=False makes json.dumps raise on either)
+def test_kernel_ladder_rows():
+    """The per-pass ladder on the CPU: the XLA passes only (the symmetric
+    kernel row needs a GPU), RFC-valid JSON, no roofline off the GPU."""
+    rows = suite.bench_kernels([128], k=3)
+    assert {r["kernel"] for r in rows} == {
+        "rowsum_xla", "scale_xla", "scale_rowsum_xla", "matvec_xla",
+    }
     for r in rows:
+        assert r["roofline_pct"] is None
         json.loads(json.dumps(r, allow_nan=False))
 
 
@@ -60,7 +57,7 @@ def test_cli_json(tmp_path):
         [
             sys.executable,
             "-m",
-            "eigen_value_tpu.bench",
+            "eigen_value.bench",
             "--suite",
             "e2e",
             "--dims",
@@ -86,7 +83,7 @@ def test_cli_json(tmp_path):
 
 @pytest.mark.slow
 def test_package_main_entry():
-    """`python -m eigen_value_tpu` is the reference ./run analog."""
+    """`python -m eigen_value` is the reference ./run analog."""
     import subprocess
     import sys
 
@@ -96,7 +93,7 @@ def test_package_main_entry():
         [
             sys.executable,
             "-m",
-            "eigen_value_tpu",
+            "eigen_value",
             "--device",
             "cpu",
             "--suite",

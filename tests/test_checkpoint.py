@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from eigen_value_tpu import checkpoint, fixtures
-from eigen_value_tpu.config import EPS, MAX_ITR
-from eigen_value_tpu.ops.solver_matvec import solve_matvec
+from eigen_value import checkpoint, fixtures
+from eigen_value.config import EPS, MAX_ITR
+from eigen_value.ops.solver_matvec import solve_matvec
 
 DIM = 512  # 12 rounds (fixtures.HILBERT_ROUNDS)
 
@@ -172,7 +172,7 @@ def test_2d_blocksharded_state_steps_identically(hilbert, oneshot):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from eigen_value_tpu.parallel.sharded import make_mesh2d
+    from eigen_value.parallel.sharded import make_mesh2d
 
     mesh = make_mesh2d(2, 4)
     Hs = jax.device_put(hilbert, NamedSharding(mesh, P("rows", "cols")))
@@ -191,7 +191,7 @@ def test_bf16_storage_stepping_matches_storage_solver():
     state, silently diverging from the storage-mode contract."""
     import jax.numpy as jnp
 
-    from eigen_value_tpu.ops.solver_matvec import solve_matvec_storage
+    from eigen_value.ops.solver_matvec import solve_matvec_storage
 
     H = fixtures.hilbert_matrix(256)
     want = solve_matvec_storage(H, EPS, MAX_ITR)

@@ -19,14 +19,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from eigen_value_tpu import (
+from eigen_value import (
     SolverConfig,
     fixtures,
     max_eigenvalue,
     max_eigenvalue_batch,
     max_eigenvalue_operator,
 )
-from eigen_value_tpu.parallel.sharded import make_mesh2d, make_row_mesh
+from eigen_value.parallel.sharded import make_mesh2d, make_row_mesh
 
 N = 128  # aligned dim so auto resolves the same everywhere
 
@@ -89,39 +89,38 @@ MATRIX = [
      dict(single="ok", mesh1d="ok", mesh2d="ok", batch="ok", operator="ok")),
     (dict(storage_dtype=jnp.bfloat16),
      dict(single="ok", mesh1d="ok", mesh2d="ok", batch="ok", operator="raise")),
+    (dict(storage_dtype=jnp.float16),
+     dict(single="ok", mesh1d="ok", mesh2d="ok", batch="ok", operator="raise")),
+    (dict(max_itr=3),
+     dict(single="capped", mesh1d="capped", mesh2d="capped", batch="capped",
+          operator="capped")),
+    (dict(eps=1e-2),
+     dict(single="ok", mesh1d="ok", mesh2d="ok", batch="ok", operator="ok")),
     (dict(backend="xla"),
      dict(single="ok", mesh1d="ok", mesh2d="raise", batch="raise",
           operator="raise")),
     (dict(backend="matvec"),
      dict(single="ok", mesh1d="ok", mesh2d="ok", batch="ok", operator="ok")),
-    (dict(backend="matvec_pallas", interpret=True),
+    (dict(backend="multiround"),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    # interpret=True alone (auto backend) routes to matvec_pallas on the
-    # single chip; mesh interpret auto-resolves per platform and rejects
-    # the explicit override, batch/operator run no Pallas kernel.
-    (dict(interpret=True),
+    (dict(backend="multiround", chunk=5),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    (dict(backend="multiround", chunk=5, interpret=True),
+    (dict(backend="multiround", storage_dtype=jnp.bfloat16),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    (dict(backend="pallas", interpret=True),
+    (dict(backend="multiround", eps_mode="relative"),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
     # chunk without the multiround backend would be silently dropped on
-    # every path (auto resolves to matvec on the CPU suite).
+    # every path (auto resolves to matvec).
     (dict(chunk=5),
      dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    (dict(block_rows=64, backend="matvec_pallas", interpret=True),
-     dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
-    # blocks with an explicit non-Pallas backend: nothing consumes them.
-    (dict(block_rows=64, backend="matvec"),
-     dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
-    (dict(block_cols=128, backend="multiround", interpret=True),
+    # interpret applies to the symmetric kernel only: alone, or with a
+    # backend that runs no kernel, it would be silently dropped.
+    (dict(interpret=True),
      dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
     (dict(interpret=True, backend="xla"),
@@ -130,42 +129,27 @@ MATRIX = [
     (dict(storage_dtype=jnp.bfloat16, backend="xla"),
      dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    # review round 4: interpret was silently dropped on the storage path
-    # (solve_matvec_storage is a plain XLA gemv) while blocks on the
-    # identical path raised — now both raise.
-    (dict(storage_dtype=jnp.bfloat16, backend="matvec_pallas", interpret=True),
-     dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
     # symmetric is a property DECLARATION: "auto" consumes it (the dense
-    # backends keep the job off-TPU — identical results, config.py), the
-    # explicit multiround backend honors it (upper-triangle kernel), any
-    # other explicit backend and the sharded/batch/operator entries have
-    # no symmetric form and must raise.
+    # product keeps the job on the CPU — identical results, config.py),
+    # explicit matvec/multiround honor it with the upper-triangle kernel
+    # (which on the CPU needs interpret=True, else it raises), "xla" and
+    # the sharded/batch/operator entries have no symmetric form.
     (dict(symmetric=True),
+     dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
+          operator="raise")),
+    (dict(symmetric=True, interpret=True),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
     (dict(symmetric=True, backend="multiround", interpret=True),
      dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
+    (dict(symmetric=True, backend="matvec", interpret=True),
+     dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
+          operator="raise")),
     (dict(symmetric=True, backend="matvec"),
      dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
-    # cache_tiles (round 5) is a multiround-path knob: honored by the
-    # explicit multiround backend (the VMEM-resident tile cache), with
-    # or without the symmetric declaration; silently droppable
-    # everywhere else, so every other entry/backend must raise (auto
-    # resolves off the multiround backend on the CPU suite).
-    (dict(cache_tiles=2, backend="multiround", interpret=True),
-     dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
-    (dict(cache_tiles=2, symmetric=True, backend="multiround",
-          interpret=True),
-     dict(single="ok", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
-    (dict(cache_tiles=2),
-     dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
-          operator="raise")),
-    (dict(cache_tiles=2, backend="matvec"),
+    (dict(symmetric=True, backend="xla"),
      dict(single="raise", mesh1d="raise", mesh2d="raise", batch="raise",
           operator="raise")),
 ]
@@ -188,6 +172,11 @@ def test_knob_honored_or_rejected(entry, knobs, expectations):
         return
     res = ENTRIES[entry](cfg)
     rounds = np.asarray(res.rounds)
+    if expect == "capped":
+        # max_itr honored: every path stops at the cap, unconverged
+        assert (rounds == cfg.max_itr).all(), (entry, knobs, rounds)
+        assert not bool(np.asarray(res.converged).any()), (entry, knobs)
+        return
     assert bool(np.asarray(res.converged).all()), (entry, knobs)
     # the Hilbert family's λ at N=128 is 2.21719; every honored path must
     # land there (storage modes within their documented tolerance)
@@ -229,8 +218,8 @@ class TestNewlyThreadedSemantics:
         semantics: same rounds, same λ (the ring body computes the
         relative tolerance via an extra pmax — the others read it off
         the replicated v)."""
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec
-        from eigen_value_tpu.parallel.sharded import (
+        from eigen_value.ops.solver_matvec import solve_matvec
+        from eigen_value.parallel.sharded import (
             solve_sharded,
             solve_sharded_2d,
             solve_sharded_matvec,
@@ -260,7 +249,7 @@ class TestNewlyThreadedSemantics:
         ), variant
 
     def test_batched_rowsharded_relative(self, rng):
-        from eigen_value_tpu.parallel.sharded import solve_batched_rowsharded
+        from eigen_value.parallel.sharded import solve_batched_rowsharded
 
         As = jnp.asarray(
             rng.random((2, N, N), dtype=np.float32) + 0.1
@@ -271,7 +260,7 @@ class TestNewlyThreadedSemantics:
         assert bool(np.asarray(got.converged).all())
 
     def test_batched_sharded_relative(self, rng):
-        from eigen_value_tpu.parallel.batched import solve_batched_sharded
+        from eigen_value.parallel.batched import solve_batched_sharded
         from jax.sharding import Mesh
 
         As = jnp.asarray(
@@ -310,17 +299,16 @@ class TestNewlyThreadedSemantics:
         with pytest.raises(ValueError, match="batch"):
             max_eigenvalue_batch(As, mesh=make_row_mesh(4))
 
-    def test_multiround_block_rows_honored(self):
-        """Advisor r3: an explicitly configured block_rows reached every
-        backend EXCEPT multiround.  Now it must change the kernel's
-        stripe (observable: a non-divisor block_rows falls back to the
-        kernel's alignment logic — we assert the configured value is
-        forwarded by checking a valid one solves with parity)."""
-        res = max_eigenvalue(
-            fixtures.hilbert_matrix(256),
-            SolverConfig(
-                backend="multiround", chunk=11, interpret=True, block_rows=64
-            ),
-        )
-        assert int(res.rounds) == fixtures.HILBERT_ROUNDS[256]
-        assert bool(res.converged)
+    def test_multiround_chunk_honored(self):
+        """An explicit chunk reaches the multiround loop: any chunk gives
+        the same rounds and λ as the per-round loop (the freeze makes the
+        chunking invisible), including chunks that split the solve."""
+        want = max_eigenvalue(fixtures.hilbert_matrix(256))
+        for chunk in (1, 4, 11):
+            res = max_eigenvalue(
+                fixtures.hilbert_matrix(256),
+                SolverConfig(backend="multiround", chunk=chunk),
+            )
+            assert int(res.rounds) == fixtures.HILBERT_ROUNDS[256]
+            assert bool(res.converged)
+            assert float(res.eigenvalue) == float(want.eigenvalue)

@@ -4,8 +4,8 @@ routed through the auto backend (the reference only ever ran powers of 2)."""
 import numpy as np
 import pytest
 
-from eigen_value_tpu import EigenValue, max_eigenvalue
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value import EigenValue, max_eigenvalue
+from eigen_value.reference_impl import parallel_oracle
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 7, 96, 100, 192, 300, 384])

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from eigen_value_tpu import fixtures
+from eigen_value import fixtures
 
 
 def test_hilbert_values():
@@ -26,7 +26,7 @@ def test_ramp_max():
 
 
 def test_stop_fixtures():
-    from eigen_value_tpu.ops.solver import stop_check
+    from eigen_value.ops.solver import stop_check
 
     ok = fixtures.stop_success_vector(128)
     bad = fixtures.stop_fail_vector(128)

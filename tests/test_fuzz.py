@@ -7,22 +7,28 @@ import pytest
 
 import jax.numpy as jnp
 
-from eigen_value_tpu.ops.solver import solve_xla
-from eigen_value_tpu.ops.solver_matvec import (
-    solve_matvec,
-    solve_matvec_pallas,
-)
-from eigen_value_tpu.ops.solver_pallas import solve_pallas
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value.ops.solver import solve_xla
+from eigen_value.ops.solver_matvec import solve_matvec, solve_multiround
+from eigen_value.reference_impl import parallel_oracle
 
 EPS = 1e-3
 MAX_ITR = 1000
 
+def _stepped(A):
+    """One round per dispatch through the checkpoint state."""
+    from eigen_value import checkpoint
+
+    st = checkpoint.init_state(A)
+    while not bool(st.done) and int(st.rounds) < MAX_ITR:
+        st = checkpoint.step(st, 7, EPS, MAX_ITR)
+    return checkpoint.to_result(st)
+
+
 BACKENDS = {
     "xla": lambda A: solve_xla(A, EPS, MAX_ITR),
-    "pallas": lambda A: solve_pallas(A, EPS, MAX_ITR, 64, 64, True),
+    "multiround": lambda A: solve_multiround(A, EPS, MAX_ITR, chunk=5),
     "matvec": lambda A: solve_matvec(A, EPS, MAX_ITR),
-    "matvec_pallas": lambda A: solve_matvec_pallas(A, EPS, MAX_ITR, 64, 64, True),
+    "checkpointed": _stepped,
 }
 
 
@@ -75,7 +81,7 @@ class TestShardedDifferentialFuzz:
         import jax
         from jax.sharding import Mesh
 
-        from eigen_value_tpu.parallel import (
+        from eigen_value.parallel import (
             solve_sharded,
             solve_sharded_matvec,
             solve_sharded_matvec_ring,
@@ -118,7 +124,7 @@ class TestShardedDifferentialFuzz:
         the float32 row-sum reduction grouping, so the round contract is
         ±1 (not bit parity); λ and the eigen-pair property must hold to
         the method's eps either way."""
-        from eigen_value_tpu.parallel import make_mesh2d, solve_sharded_2d
+        from eigen_value.parallel import make_mesh2d, solve_sharded_2d
 
         for n, (pr, pc) in ((64, (2, 2)), (96, (2, 4)), (128, (4, 2)), (160, (1, 8))):
             mesh = make_mesh2d(pr, pc)
@@ -141,29 +147,20 @@ class TestShardedDifferentialFuzz:
 
 
 def test_differential_multiround_vs_oracle(rng):
-    """The multiround family (dense stripes, symmetric triangle, VMEM-
-    cached, dense-cached — the round-3..5 bench.py backends) against the
-    oracle on random SYMMETRIZED positive matrices (the triangle kernels
-    require the symv contract; symmetrizing keeps every entry positive).
-    256² with tile=128 exercises real 2×2 block tiling + 1 off-diagonal
-    cached tile."""
-    from eigen_value_tpu.ops.solver_matvec import solve_multiround
-
+    """The multiround family (dense product, and the upper-triangle
+    kernel interpreted) against the oracle on random SYMMETRIZED positive
+    matrices (the kernel requires the symv contract; symmetrizing keeps
+    every entry positive).  256² is 4×4 tiles of the kernel."""
     n = 256
     backends = {
         "multiround": dict(),
-        "sym": dict(symmetric=True, tile=128),
-        "sym_cached": dict(symmetric=True, tile=128, cache_tiles=1),
-        "dense_cached": dict(tile=128, cache_tiles=2),
+        "sym": dict(symmetric=True, interpret=True),
     }
     for kind, mat in _cases(rng, n=n, count=4):
         sym = np.float32((mat + mat.T) / 2)
         want = parallel_oracle(sym)
         for name, kw in backends.items():
-            got = solve_multiround(
-                jnp.asarray(sym), EPS, MAX_ITR, chunk=6, interpret=True,
-                **kw,
-            )
+            got = solve_multiround(jnp.asarray(sym), EPS, MAX_ITR, chunk=6, **kw)
             tol = 1e-3 * max(want.eigenvalue, 1.0)
             assert bool(got.converged) == want.converged, (name, kind)
             assert int(got.rounds) == want.rounds, (

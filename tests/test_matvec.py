@@ -7,16 +7,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from eigen_value_tpu import fixtures
-from eigen_value_tpu.ops.pallas import kernels
-from eigen_value_tpu.ops.solver import solve_xla
-from eigen_value_tpu.ops.solver_matvec import (
-    solve_fused_round,
+from eigen_value import fixtures
+from eigen_value.ops.solver import solve_xla
+from eigen_value.ops.solver_matvec import (
     solve_matvec,
-    solve_matvec_pallas,
     solve_matvec_storage,
+    storage_matvec,
 )
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value.reference_impl import parallel_oracle
 
 EPS = 1e-3
 MAX_ITR = 1000
@@ -25,11 +23,14 @@ MAX_ITR = 1000
 class TestMatvecKernel:
     @pytest.mark.parametrize("shape", [(128, 128), (256, 512)])
     def test_matches_jnp(self, shape, rng):
-        A = jnp.asarray(rng.random(shape, dtype=np.float32))
-        x = jnp.asarray(rng.random(shape[1], dtype=np.float32) + 0.5)
-        got = kernels.matvec(A, x, block_rows=128, block_cols=128, interpret=True)
-        want = jnp.sum(A * x[None, :], axis=1)  # same reduction structure
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-6)
+        """The storage product: bf16 entries widened exactly and multiplied
+        by the UNQUANTIZED f32 vector, summed in f32."""
+        Aq = jnp.asarray(rng.random(shape, dtype=np.float32)).astype(jnp.bfloat16)
+        x = rng.random(shape[1], dtype=np.float32) + 0.5
+        got = np.asarray(storage_matvec(Aq, jnp.asarray(x)))
+        want = np.asarray(Aq.astype(jnp.float32), np.float64) @ x.astype(np.float64)
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 class TestSolveMatvec:
@@ -109,7 +110,7 @@ class TestSolveMatvecBf16:
         )
 
     def test_api_accepts_prequantized(self):
-        from eigen_value_tpu import SolverConfig, max_eigenvalue
+        from eigen_value import SolverConfig, max_eigenvalue
 
         Hq = fixtures.hilbert_matrix(128, dtype=jnp.bfloat16)
         res = max_eigenvalue(Hq, SolverConfig(storage_dtype=jnp.bfloat16))
@@ -118,25 +119,36 @@ class TestSolveMatvecBf16:
 
 
 class TestSolveMatvecPallas:
+    """The default route (backend="auto" → dense matvec form)."""
+
     @pytest.mark.parametrize("n", [128, 512])
     def test_hilbert_round_parity(self, n):
-        res = solve_matvec_pallas(fixtures.hilbert_matrix(n), EPS, MAX_ITR, 128, 128, True)
+        from eigen_value import max_eigenvalue
+
+        res = max_eigenvalue(fixtures.hilbert_matrix(n))
         assert bool(res.converged)
         assert int(res.rounds) == fixtures.HILBERT_ROUNDS[n]
 
     def test_eigen_pair_property(self, rng):
+        from eigen_value import max_eigenvalue
+
         mat = rng.random((256, 256), dtype=np.float32)
-        res = solve_matvec_pallas(jnp.asarray(mat), EPS, MAX_ITR, 128, 128, True)
+        res = max_eigenvalue(mat)
         v = np.asarray(res.eigenvector)
         assert np.allclose(mat @ v, float(res.eigenvalue) * v, atol=1e-3)
 
     @pytest.mark.parametrize("n", [128, 256, 512])
     def test_fused_round_kernel_bitexact(self, n):
-        """The one-kernel-per-round solver (SMEM scalars, full-array v
-        block) must be bit-exact vs the production cond-skip loop."""
+        """One round per dispatch (checkpoint.step with 1 round) must be
+        bit-exact vs the one-shot while loop."""
+        from eigen_value import checkpoint
+
         H = fixtures.hilbert_matrix(n)
-        a = solve_matvec_pallas(H, EPS, MAX_ITR, interpret=True)
-        b = solve_fused_round(H, EPS, MAX_ITR, interpret=True)
+        a = solve_matvec(H, EPS, MAX_ITR)
+        st = checkpoint.init_state(H)
+        while not bool(st.done) and int(st.rounds) < MAX_ITR:
+            st = checkpoint.step(st, 1, EPS, MAX_ITR)
+        b = checkpoint.to_result(st)
         assert int(a.rounds) == int(b.rounds) == fixtures.HILBERT_ROUNDS[n]
         assert float(a.eigenvalue) == float(b.eigenvalue)
         np.testing.assert_array_equal(
@@ -146,8 +158,8 @@ class TestSolveMatvecPallas:
 
 class TestTracedSolve:
     def test_history_matches_oracle_rounds(self):
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec_traced
-        from eigen_value_tpu.reference_impl import parallel_oracle
+        from eigen_value.ops.solver_matvec import solve_matvec_traced
+        from eigen_value.reference_impl import parallel_oracle
 
         H = fixtures.hilbert_matrix(256)
         res, hist = solve_matvec_traced(H, EPS, 50)
@@ -177,7 +189,7 @@ class TestTracedSolve:
             pvec = pvec * (v / v.max())
 
     def test_result_matches_untraced(self):
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec_traced
+        from eigen_value.ops.solver_matvec import solve_matvec_traced
 
         H = fixtures.hilbert_matrix(128)
         a = solve_matvec(H, EPS, MAX_ITR)
@@ -189,71 +201,13 @@ class TestTracedSolve:
         )
 
 
-class TestPallasFusedLadderRung:
-    """solve_matvec_pallas_fused (round-2 ladder rung, kept as a measured
-    negative — see its docstring) must stay bit-identical to the
-    production solve_matvec_pallas, including cap exhaustion."""
-
-    def test_bitexact_convergence(self):
-        from eigen_value_tpu.ops.solver_matvec import (
-            solve_matvec_pallas,
-            solve_matvec_pallas_fused,
-        )
-
-        for n in (128, 256):
-            H = fixtures.hilbert_matrix(n)
-            a = solve_matvec_pallas(H, EPS, MAX_ITR, interpret=True)
-            b = solve_matvec_pallas_fused(H, EPS, MAX_ITR, interpret=True)
-            assert int(a.rounds) == int(b.rounds) == fixtures.HILBERT_ROUNDS[n]
-            assert float(a.eigenvalue) == float(b.eigenvalue)
-            np.testing.assert_array_equal(
-                np.asarray(a.eigenvector), np.asarray(b.eigenvector)
-            )
-
-    def test_bitexact_cap_exhaustion(self):
-        from eigen_value_tpu.ops.solver_matvec import (
-            solve_matvec_pallas,
-            solve_matvec_pallas_fused,
-        )
-
-        H = fixtures.hilbert_matrix(256)
-        for cap in (0, 1, 5):
-            a = solve_matvec_pallas(H, EPS, cap, interpret=True)
-            b = solve_matvec_pallas_fused(H, EPS, cap, interpret=True)
-            assert int(a.rounds) == int(b.rounds) == cap
-            assert float(a.eigenvalue) == float(b.eigenvalue)
-            assert not bool(a.converged) and not bool(b.converged)
-            np.testing.assert_array_equal(
-                np.asarray(a.eigenvector), np.asarray(b.eigenvector)
-            )
-
-    def test_round_matvec_kernel_matches_unfused_ops(self, rng):
-        """The round_matvec kernel's outputs equal the unfused expression
-        chain (same ops, same order) bitwise."""
-        import jax.numpy as jnp
-
-        from eigen_value_tpu.ops.pallas import kernels
-
-        A = jnp.asarray(rng.random((128, 128), dtype=np.float32) + 1e-2)
-        v = jnp.sum(A, axis=1)
-        ev = jnp.ones((128,), jnp.float32) * jnp.float32(0.5)
-        m = jnp.max(v)
-        v_next, ev_new = kernels.round_matvec(
-            A, ev, v, m, block_rows=64, block_cols=64, interpret=True
-        )
-        ev_want = ev * (v / m)
-        y = kernels.matvec(A, ev_want, block_rows=64, block_cols=64, interpret=True)
-        np.testing.assert_array_equal(np.asarray(ev_new), np.asarray(ev_want))
-        np.testing.assert_array_equal(np.asarray(v_next), np.asarray(y / ev_want))
-
-
 def test_f16_storage_mode():
     """storage_dtype=float16: same bytes as bf16 with ~5x less lambda error
     (more mantissa) — valid when entries stay above f16's normal range
     (see solve_matvec_storage docstring for the underflow caveat)."""
     import jax.numpy as jnp
 
-    from eigen_value_tpu.ops.solver_matvec import (
+    from eigen_value.ops.solver_matvec import (
         solve_matvec,
         solve_matvec_storage,
     )

@@ -4,7 +4,7 @@ regardless of the iteration's internals, checked through the public API."""
 import numpy as np
 import pytest
 
-from eigen_value_tpu import max_eigenvalue
+from eigen_value import max_eigenvalue
 
 N = 160  # deliberately not a power of two
 
@@ -69,7 +69,7 @@ def test_symmetric_declaration_is_path_invisible(rng):
     triangle/cached kernels — must agree with the default dense path
     (λ within reduction-order tolerance, same normalized eigenvector):
     the declaration picks a faster route, never a different answer."""
-    from eigen_value_tpu import SolverConfig
+    from eigen_value import SolverConfig
 
     n = 256  # sym-tileable (the triangle kernel needs a 128-mult tile)
     a = rng.random((n, n), dtype=np.float32) + np.float32(1e-3)

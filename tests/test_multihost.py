@@ -1,12 +1,12 @@
 """Real multi-process multi-host test.
 
 The reference is single-device; multi-host row-partitioned solving is a
-capability the TPU build adds (SURVEY.md §2/§5).  This test exercises the
+capability this build adds (SURVEY.md §2/§5).  This test exercises the
 FULL multi-host path — ``jax.distributed.initialize`` process-group
 bootstrap, host-local data placement (each process materializes only its
 own row block), global-array assembly, and the shard_map solve — with two
 actual OS processes of 4 virtual CPU devices each, the CI stand-in for two
-TPU hosts (DCN boundary = process boundary).
+hosts (network boundary = process boundary).
 """
 
 import json
@@ -18,8 +18,8 @@ import sys
 import numpy as np
 import pytest
 
-from eigen_value_tpu import fixtures
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value import fixtures
+from eigen_value.reference_impl import parallel_oracle
 
 DIM = 256
 
@@ -42,7 +42,7 @@ def _run_group(nprocs: int, solver: str, dim: int = DIM):
             [
                 sys.executable,
                 "-m",
-                "eigen_value_tpu.bench.mh_worker",
+                "eigen_value.bench.mh_worker",
                 "--reps",
                 "1",
                 "--process-id",

@@ -1,13 +1,13 @@
-"""Symmetric (upper-triangle) multiround kernel
-(kernels.multiround_sym / solve_multiround(symmetric=True)).
+"""The upper-triangle kernel (kernels.symv) and the solves built on it
+(solve_matvec_symmetric, solve_multiround(symmetric=True)), in Pallas
+interpret mode.
 
-The round-4 headline rung: for a SYMMETRIC matrix each round streams only
-the g(g+1)/2 tiles on or above the diagonal — ~half the HBM traffic of
-the memory-bound solve.  Semantics must match the dense multiround kernel
-exactly (same prologue/freeze/chunk structure; different f32 reduction
-order, so parity is round-count + λ-tolerance, while chunking WITHIN the
-symmetric kernel stays bit-exact).  tests/test_tpu_hw.py re-pins parity
-and the traffic win on silicon.
+For a SYMMETRIC matrix each product reads only the g(g+1)/2 tiles on or
+above the diagonal — about half the bytes of the bandwidth-bound solve.
+The kernel sums in another f32 order than XLA's dense product, so parity
+with the dense solve is round counts + λ tolerance, while chunking and
+repeated calls stay bit-exact.  tests/test_gpu_hw.py re-pins parity on
+the card.
 """
 
 import numpy as np
@@ -15,13 +15,18 @@ import pytest
 
 import jax.numpy as jnp
 
-from eigen_value_tpu import SolverConfig, max_eigenvalue, fixtures
-from eigen_value_tpu.config import EPS, MAX_ITR
-from eigen_value_tpu.ops.pallas.kernels import sym_tile
-from eigen_value_tpu.ops.solver_matvec import (
+from eigen_value import SolverConfig, max_eigenvalue, fixtures
+from eigen_value.config import EPS, MAX_ITR
+from eigen_value.ops.pallas import kernels
+from eigen_value.ops.pallas.kernels import sym_tiles
+from eigen_value.ops.solver_matvec import (
     solve_matvec,
+    solve_matvec_symmetric,
     solve_multiround,
 )
+from eigen_value.reference_impl import parallel_oracle
+
+T = kernels.SYM_TILE
 
 
 def _sym(n: int, seed: int = 3, scale: float = 1.0) -> jnp.ndarray:
@@ -30,31 +35,88 @@ def _sym(n: int, seed: int = 3, scale: float = 1.0) -> jnp.ndarray:
     return jnp.asarray((r + r.T) * scale)
 
 
-def _solve_sym(A, chunk=18, tile=128, **kw):
+def _solve_sym(A, chunk=18, **kw):
     return solve_multiround(
-        A, EPS, MAX_ITR, chunk=chunk, interpret=True, symmetric=True,
-        tile=tile, **kw,
+        A, EPS, MAX_ITR, chunk=chunk, interpret=True, symmetric=True, **kw
     )
+
+
+def _symv(A, x):
+    return np.asarray(kernels.symv(A, x, interpret=True))
 
 
 class TestSymTile:
     def test_picks_largest_dividing_multiple_of_128(self):
-        assert sym_tile(8192) == 512
-        assert sym_tile(8192, tile=1024) == 1024
-        assert sym_tile(1024, tile=512) == 512
-        assert sym_tile(128 * 5) == 128  # 640: only 128 divides
-        assert sym_tile(384) == 384  # min(512, n) rounds down to 384
+        """The tile table enumerates exactly the g(g+1)/2 tiles with
+        i ≤ j, row-major, for any n (edge tiles cover the remainder)."""
+        for n in (64, 128, 200, 8192):
+            i, j = sym_tiles(n)
+            g = -(-n // T)
+            assert i.size == g * (g + 1) // 2
+            assert (i <= j).all() and j.max() == g - 1
+            assert list(zip(i, j)) == sorted(zip(i, j))
+            assert i.dtype == np.int32 and j.dtype == np.int32
 
     def test_none_when_unalignable(self):
-        assert sym_tile(96) is None  # below one lane tile
-        assert sym_tile(3) is None
-        assert sym_tile(8192 + 8) is None  # 8200 has no 128-mult divisor
+        """No dim is unalignable: a dim below one tile is a single tile."""
+        for n in (1, 3, T - 1):
+            i, j = sym_tiles(n)
+            assert list(zip(i, j)) == [(0, 0)]
+
+
+@pytest.mark.parametrize("n", [1, 3, 63, 64, 65, 100, 130, 257])
+def test_symv_matches_dense(n):
+    """The kernel's product against a float64 dense one, for dims that are
+    no multiple of the tile and dims smaller than one tile."""
+    A = _sym(n, seed=n)
+    x = np.random.default_rng(n).random(n, np.float32) + 0.5
+    want = np.asarray(A, np.float64) @ x.astype(np.float64)
+    np.testing.assert_allclose(_symv(A, jnp.asarray(x)), want, rtol=2e-6)
+
+
+def test_symv_repeated_calls_bit_identical():
+    """No atomics: the partials are summed in a fixed order, so a product
+    never depends on the order in which blocks ran."""
+    A = _sym(300)
+    x = jnp.asarray(np.random.default_rng(1).random(300, np.float32) + 0.5)
+    first = _symv(A, x)
+    for _ in range(3):
+        np.testing.assert_array_equal(_symv(A, x), first)
+
+
+def test_symv_lower_triangle_never_read():
+    """NaN below the diagonal changes nothing: the diagonal tiles load
+    their upper triangle only, and no tile below the diagonal is loaded."""
+    n = 200
+    A = np.asarray(_sym(n))
+    poisoned = A.copy()
+    poisoned[np.tril_indices(n, -1)] = np.nan
+    x = jnp.asarray(np.random.default_rng(2).random(n, np.float32) + 0.5)
+    np.testing.assert_array_equal(_symv(jnp.asarray(poisoned), x), _symv(A, x))
+
+
+def test_symv_bf16_storage_widened_exactly():
+    """bf16 entries are widened to f32 inside the kernel: the product
+    equals the f32 kernel's on the widened matrix, bit for bit."""
+    A = _sym(130).astype(jnp.bfloat16)
+    x = jnp.asarray(np.random.default_rng(4).random(130, np.float32) + 0.5)
+    np.testing.assert_array_equal(_symv(A, x), _symv(A.astype(jnp.float32), x))
+
+
+def test_symv_requires_gpu_without_interpret():
+    """Asked for on the CPU without interpret=True, the kernel is an
+    error, never a silent interpreter."""
+    with pytest.raises(ValueError, match="interpret=True"):
+        max_eigenvalue(
+            fixtures.hilbert_matrix(128),
+            SolverConfig(backend="matvec", symmetric=True),
+        )
 
 
 @pytest.mark.parametrize("n", [128, 256, 512])
 def test_round_parity_vs_parity_table(n):
     """Hilbert round counts must match HILBERT_ROUNDS (the reference
-    parity invariant) despite the triangle reduction order."""
+    parity invariant) despite the kernel's summation order."""
     H = fixtures.hilbert_matrix(n)
     want = solve_matvec(H, EPS, MAX_ITR)
     got = _solve_sym(H)
@@ -69,22 +131,22 @@ def test_round_parity_vs_parity_table(n):
 
 
 def test_multiple_tiles_per_side_and_dot_formulation():
-    """n = 512 with tile=128 exercises 4×4 triangle tiling (10 tiles,
-    6 off-diagonal) in both formulations."""
+    """n = 512 is 8×8 tiles (36 tiles, 28 off the diagonal); the
+    per-round and chunked loops agree bit for bit."""
     H = fixtures.hilbert_matrix(512)
-    want = solve_matvec(H, EPS, MAX_ITR)
-    for form in ("vpu", "dot"):
-        got = _solve_sym(H, formulation=form)
-        assert int(got.rounds) == fixtures.HILBERT_ROUNDS[512], form
-        assert float(got.eigenvalue) == pytest.approx(
-            float(want.eigenvalue), rel=1e-5
-        ), form
+    per_round = solve_matvec_symmetric(H, EPS, MAX_ITR, interpret=True)
+    chunked = _solve_sym(H)
+    assert int(per_round.rounds) == fixtures.HILBERT_ROUNDS[512]
+    assert float(chunked.eigenvalue) == float(per_round.eigenvalue)
+    np.testing.assert_array_equal(
+        np.asarray(chunked.eigenvector), np.asarray(per_round.eigenvector)
+    )
 
 
 @pytest.mark.parametrize("chunk", [1, 2, 5, 16, 40])
 def test_chunk_boundaries_are_invisible(chunk):
     """Chunking the symmetric round sequence is bit-invisible (the same
-    freeze-at-convergence argument as the dense kernel)."""
+    freeze-at-convergence argument as the dense loop)."""
     H = fixtures.hilbert_matrix(256)
     want = _solve_sym(H, chunk=18)
     got = _solve_sym(H, chunk=chunk)
@@ -100,12 +162,8 @@ def test_cap_exhaustion(cap):
     """rounds == cap, converged False, λ = last checked round's v[0] —
     same cap semantics as the production loop."""
     H = fixtures.hilbert_matrix(256)
-    want = solve_multiround(
-        H, EPS, cap, chunk=50, interpret=True, symmetric=True, tile=128
-    )
-    got = solve_multiround(
-        H, EPS, cap, chunk=4, interpret=True, symmetric=True, tile=128
-    )
+    want = solve_matvec_symmetric(H, EPS, cap, interpret=True)
+    got = solve_multiround(H, EPS, cap, chunk=4, interpret=True, symmetric=True)
     assert int(got.rounds) == int(want.rounds) == min(
         cap, fixtures.HILBERT_ROUNDS[256]
     )
@@ -115,23 +173,13 @@ def test_cap_exhaustion(cap):
     assert float(got.eigenvalue) == float(want.eigenvalue)
 
 
-def _below_block_diagonal(n: int, bt: int) -> jnp.ndarray:
-    """Mask of entries in tiles strictly below the block diagonal — the
-    part of A the triangle kernel NEVER reads (diagonal tiles stream
-    whole: their intra-tile lower halves feed the row term, so they must
-    themselves be symmetric — kernels.multiround_sym docstring)."""
-    blk = jnp.arange(n) // bt
-    return (blk[:, None] > blk[None, :]).astype(jnp.float32)
-
-
 def test_only_the_upper_block_triangle_is_read():
-    """THE defining property: corrupt every tile strictly below the block
+    """THE defining property: corrupt everything strictly below the
     diagonal of a symmetric matrix — the symmetric solve must not notice
-    (bit-identical result), proof those tiles are never streamed."""
+    (bit-identical result)."""
     A = _sym(256)
-    corrupted = jnp.where(
-        _below_block_diagonal(256, 128) > 0, jnp.float32(7.25), A
-    )
+    below = jnp.tril(jnp.ones((256, 256), bool), -1)
+    corrupted = jnp.where(below, jnp.float32(7.25), A)
     want = _solve_sym(A)
     got = _solve_sym(corrupted)
     assert int(got.rounds) == int(want.rounds)
@@ -142,7 +190,7 @@ def test_only_the_upper_block_triangle_is_read():
 
 
 def test_relative_eps_mode():
-    """eps_mode='relative' reaches the triangle prologue's stop."""
+    """eps_mode='relative' reaches the symmetric solve's stop."""
     A = _sym(128, scale=1e5)
     want = solve_matvec(A, EPS, MAX_ITR, eps_mode="relative")
     got = _solve_sym(A, eps_mode="relative")
@@ -154,300 +202,57 @@ def test_relative_eps_mode():
 
 
 def test_bf16_storage():
-    """Reduced-precision STORAGE composes: bf16 triangle tiles, f32
-    state — same contract as the dense kernel's storage mode."""
+    """Reduced-precision STORAGE composes: bf16 tiles, f32 state —
+    anchored on the float64 oracle (±1 round, λ within 2e-3)."""
     H = fixtures.hilbert_matrix(256)
-    want = solve_multiround(
-        H, EPS, MAX_ITR, chunk=12, interpret=True,
-        storage_dtype=jnp.bfloat16,
-    )
-    got = solve_multiround(
-        H, EPS, MAX_ITR, chunk=12, interpret=True, symmetric=True,
-        tile=128, storage_dtype=jnp.bfloat16,
-    )
-    assert abs(int(got.rounds) - int(want.rounds)) <= 1
+    ref = parallel_oracle(np.asarray(H), dtype=np.float64)
+    got = _solve_sym(H, chunk=12, storage_dtype=jnp.bfloat16)
+    assert abs(int(got.rounds) - fixtures.HILBERT_ROUNDS[256]) <= 1
     assert bool(got.converged)
-    assert float(got.eigenvalue) == pytest.approx(
-        float(want.eigenvalue), rel=2e-3
-    )
+    assert float(got.eigenvalue) == pytest.approx(ref.eigenvalue, rel=2e-3)
     assert got.eigenvalue.dtype == jnp.float32
 
 
 def test_unalignable_dim_raises():
+    """Dims with no relation to the tile solve too: 96 (two tiles, the
+    second partial) and the 3×3 anchor (one partial tile)."""
     H = fixtures.hilbert_matrix(96)
-    with pytest.raises(ValueError, match="square tile"):
-        solve_multiround(
-            H, EPS, MAX_ITR, chunk=4, interpret=True, symmetric=True
-        )
-
-
-class TestVmemCache:
-    """The round-5 cached variant (cache_tiles > 0): strictly-off-
-    diagonal tiles held VMEM-resident in a packed cache, their matvec
-    work spread across the streamed grid steps
-    (kernels.sym_cache_split).  Semantics must be indistinguishable up
-    to f32 reduction order."""
-
-    def test_cache_split_geometry(self):
-        from eigen_value_tpu.ops.pallas.kernels import sym_cache_split
-
-        streamed, cached = sym_cache_split(8192, 512, 0)
-        assert cached == () and len(streamed) == 136
-        streamed, cached = sym_cache_split(8192, 512, 96)
-        assert len(cached) == 96 and len(streamed) == 40
-        # every cached tile strictly off-diagonal; no tile in both sets;
-        # together they cover the whole upper triangle
-        assert all(j > i for i, j in cached)
-        assert not set(cached) & set(streamed)
-        assert set(cached) | set(streamed) == {
-            (i, j) for i in range(16) for j in range(i, 16)
-        }
-        # asking for more than exist caps at the off-diagonal count
-        _, cached_all = sym_cache_split(8192, 512, 10_000)
-        assert len(cached_all) == 120
-
-    @pytest.mark.parametrize("n,tiles", [(256, 1), (512, 3), (512, 6)])
-    def test_round_parity_and_lambda(self, n, tiles):
-        H = fixtures.hilbert_matrix(n)
-        want = solve_matvec(H, EPS, MAX_ITR)
-        got = _solve_sym(H, cache_tiles=tiles)
-        assert int(got.rounds) == fixtures.HILBERT_ROUNDS[n]
-        assert bool(got.converged)
-        assert float(got.eigenvalue) == pytest.approx(
-            float(want.eigenvalue), rel=1e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(got.eigenvector),
-            np.asarray(want.eigenvector),
-            rtol=1e-4,
-        )
-
-    @pytest.mark.parametrize("chunk", [1, 3, 18])
-    def test_chunk_boundaries_are_invisible(self, chunk):
-        H = fixtures.hilbert_matrix(256)
-        want = _solve_sym(H, chunk=18, cache_tiles=1)
-        got = _solve_sym(H, chunk=chunk, cache_tiles=1)
-        assert int(got.rounds) == int(want.rounds)
-        assert float(got.eigenvalue) == float(want.eigenvalue)
-        np.testing.assert_array_equal(
-            np.asarray(got.eigenvector), np.asarray(want.eigenvector)
-        )
-
-    def test_lower_triangle_never_read(self):
-        """The defining property survives caching: cached tiles are
-        strictly above the diagonal and streamed tiles are the upper
-        triangle's remainder, so tiles strictly below the (tile-grid)
-        block diagonal stay unread."""
-        A = _sym(512)
-        corrupted = jnp.where(
-            _below_block_diagonal(512, 128) > 0, jnp.float32(7.25), A
-        )
-        for tiles in (3, 6):
-            want = _solve_sym(A, cache_tiles=tiles)
-            got = _solve_sym(corrupted, cache_tiles=tiles)
-            assert int(got.rounds) == int(want.rounds), tiles
-            assert float(got.eigenvalue) == float(want.eigenvalue), tiles
-
-    def test_bf16_storage_composes(self):
-        H = fixtures.hilbert_matrix(256)
-        want = solve_multiround(
-            H, EPS, MAX_ITR, chunk=12, interpret=True,
-            storage_dtype=jnp.bfloat16,
-        )
-        got = solve_multiround(
-            H, EPS, MAX_ITR, chunk=12, interpret=True, symmetric=True,
-            tile=128, storage_dtype=jnp.bfloat16, cache_tiles=1,
-        )
-        assert abs(int(got.rounds) - int(want.rounds)) <= 1
-        assert bool(got.converged)
-        assert float(got.eigenvalue) == pytest.approx(
-            float(want.eigenvalue), rel=2e-3
-        )
-
-    def test_dot_formulation_composes(self):
-        H = fixtures.hilbert_matrix(512)
-        got = _solve_sym(H, cache_tiles=4, formulation="dot")
-        assert int(got.rounds) == fixtures.HILBERT_ROUNDS[512]
-        assert bool(got.converged)
-
-    def test_mixed_formulation_composes(self):
-        """"mixed" = streamed tiles on the VPU + cached tiles on the MXU
-        (the round-5c unit-overlap formulation) — same round/λ parity,
-        in both the symmetric and the dense-cached mode."""
-        H = fixtures.hilbert_matrix(512)
-        got = _solve_sym(H, cache_tiles=4, formulation="mixed")
-        assert int(got.rounds) == fixtures.HILBERT_ROUNDS[512]
-        assert bool(got.converged)
-        rng = np.random.default_rng(13)
-        A = jnp.asarray(rng.random((384, 384), np.float32) + 0.1)
-        want = solve_matvec(A, EPS, MAX_ITR)
-        got = solve_multiround(
-            A, EPS, MAX_ITR, chunk=5, interpret=True, tile=128,
-            cache_tiles=5, formulation="mixed",
-        )
-        assert int(got.rounds) == int(want.rounds)
-        assert float(got.eigenvalue) == pytest.approx(
-            float(want.eigenvalue), rel=1e-5
-        )
-
-    def test_dense_cached_mode(self):
-        """cache_tiles WITHOUT the symmetric declaration routes to the
-        tiled dense kernel (all g² tiles, direct terms only) — correct
-        on a NON-symmetric matrix, unlike the triangle kernel."""
-        rng = np.random.default_rng(11)
-        A = jnp.asarray(rng.random((384, 384), np.float32) + 0.1)
-        want = solve_matvec(A, EPS, MAX_ITR)
-        for C in (1, 5):
-            got = solve_multiround(
-                A, EPS, MAX_ITR, chunk=5, interpret=True, tile=128,
-                cache_tiles=C,
-            )
-            assert int(got.rounds) == int(want.rounds), C
-            assert bool(got.converged)
-            assert float(got.eigenvalue) == pytest.approx(
-                float(want.eigenvalue), rel=1e-5
-            ), C
-        # bit-exact chunking holds in dense-cached mode too
-        a = solve_multiround(
-            A, EPS, MAX_ITR, chunk=1, interpret=True, tile=128,
-            cache_tiles=3,
-        )
-        b = solve_multiround(
-            A, EPS, MAX_ITR, chunk=18, interpret=True, tile=128,
-            cache_tiles=3,
-        )
-        assert float(a.eigenvalue) == float(b.eigenvalue)
-        np.testing.assert_array_equal(
-            np.asarray(a.eigenvector), np.asarray(b.eigenvector)
-        )
+    want = solve_matvec(H, EPS, MAX_ITR)
+    got = _solve_sym(H)
+    assert abs(int(got.rounds) - int(want.rounds)) <= 1
+    assert float(got.eigenvalue) == pytest.approx(
+        float(want.eigenvalue), rel=1e-5
+    )
+    anchor = jnp.asarray(fixtures.ANCHOR_3X3, jnp.float32)
+    # the anchor is not symmetric: symmetrize it for the declaration
+    sym3 = (anchor + anchor.T) / 2
+    got3 = _solve_sym(sym3)
+    want3 = solve_matvec(sym3, EPS, MAX_ITR)
+    assert float(got3.eigenvalue) == pytest.approx(
+        float(want3.eigenvalue), rel=1e-5
+    )
 
 
 class TestConfigRouting:
     """The honored-or-rejected contract for the ``symmetric`` knob."""
 
     def test_explicit_multiround_backend_uses_triangle(self):
-        """Via the public config, a below-block-diagonal corruption is
-        invisible — proof the triangle kernel (not the dense one) ran."""
+        """Via the public config, a below-diagonal corruption is invisible
+        — proof the triangle kernel (not the dense product) ran."""
         A = _sym(256)
         corrupted = jnp.where(
-            _below_block_diagonal(256, 128) > 0, jnp.float32(9.5), A
+            jnp.tril(jnp.ones((256, 256), bool), -1), jnp.float32(9.5), A
         )
-        cfg = SolverConfig(
-            backend="multiround", symmetric=True, interpret=True,
-            block_rows=128,
-        )
-        want = max_eigenvalue(A, cfg)
-        got = max_eigenvalue(corrupted, cfg)
-        assert float(got.eigenvalue) == float(want.eigenvalue)
-        assert int(got.rounds) == int(want.rounds)
-
-    def test_block_rows_is_the_tile_edge(self):
-        """block_rows=128 must reach the kernel as tile=128 (the only
-        tile that divides 384 is 384 itself or 128)."""
-        H = fixtures.hilbert_matrix(384)
-        res = max_eigenvalue(
-            H,
-            SolverConfig(
-                backend="multiround", symmetric=True, interpret=True,
-                block_rows=128,
-            ),
-        )
-        assert bool(res.converged)
-
-    def test_cache_tiles_routing(self):
-        """The honored-or-rejected contract for the round-5 cache knob:
-        None auto-sizes (defaults pick the fast path — the API's
-        symmetric multiround matches bench.py's headline config),
-        explicit values win, and setting it without symmetric rejects at
-        construction."""
-        from eigen_value_tpu.api import _solve_fn
-        from eigen_value_tpu.ops.pallas.kernels import sym_auto_cache_tiles
-
-        fn = _solve_fn(
-            SolverConfig(backend="multiround", symmetric=True,
-                         interpret=True),
-            "multiround",
-            8192,
-        )
-        assert fn.keywords["cache_tiles"] == sym_auto_cache_tiles(8192, 512)
-        assert fn.keywords["cache_tiles"] == 104
-        fn0 = _solve_fn(
-            SolverConfig(backend="multiround", symmetric=True,
-                         cache_tiles=0, interpret=True),
-            "multiround",
-            8192,
-        )
-        assert fn0.keywords["cache_tiles"] == 0
-        fn7 = _solve_fn(
-            SolverConfig(backend="multiround", symmetric=True,
-                         cache_tiles=7, interpret=True),
-            "multiround",
-            8192,
-        )
-        assert fn7.keywords["cache_tiles"] == 7
-        # bf16 storage halves the per-tile bytes and uses the 48 MiB
-        # budget: 96 tiles at 8192²/512
-        fnb = _solve_fn(
-            SolverConfig(backend="multiround", symmetric=True,
-                         storage_dtype=jnp.bfloat16, interpret=True),
-            "multiround",
-            8192,
-        )
-        assert fnb.keywords["cache_tiles"] == 96
-        with pytest.raises(ValueError, match="cache_tiles"):
-            SolverConfig(symmetric=True, cache_tiles=-1)
-        # non-multiround explicit backend rejects the knob
-        from eigen_value_tpu.api import _solve_fn as _sf
-        with pytest.raises(ValueError, match="cache_tiles"):
-            _sf(SolverConfig(backend="matvec", cache_tiles=4), "matvec", 512)
-        # DENSE multiround (no symmetric declaration) auto-sizes too:
-        # the tiled direct-terms kernel with the resident cache
-        fd = _solve_fn(
-            SolverConfig(backend="multiround", interpret=True),
-            "multiround",
-            8192,
-        )
-        assert fd.keywords["cache_tiles"] == 104
-        assert "symmetric" not in fd.keywords
-        fd0 = _solve_fn(
-            SolverConfig(backend="multiround", cache_tiles=0,
-                         interpret=True),
-            "multiround",
-            8192,
-        )
-        assert "cache_tiles" not in fd0.keywords  # stripes kernel path
-        # explicit cache at an unalignable dim rejects (not silently
-        # dropped onto the cache-less stripes kernel)
-        with pytest.raises(ValueError, match="128-aligned"):
-            _solve_fn(
-                SolverConfig(backend="multiround", cache_tiles=4,
-                             interpret=True),
-                "multiround",
-                8200,
-            )
-        # end-to-end through the public API (interpret, small dim):
-        # identical answers with and without the cache
-        H = fixtures.hilbert_matrix(512)
-        cfg = SolverConfig(
-            backend="multiround", symmetric=True, interpret=True,
-            block_rows=128,
-        )
-        res = max_eigenvalue(H, cfg)
-        res0 = max_eigenvalue(
-            H,
-            SolverConfig(
-                backend="multiround", symmetric=True, interpret=True,
-                block_rows=128, cache_tiles=0,
-            ),
-        )
-        assert int(res.rounds) == int(res0.rounds)
-        assert float(res.eigenvalue) == pytest.approx(
-            float(res0.eigenvalue), rel=1e-6
-        )
+        for backend in ("multiround", "matvec"):
+            cfg = SolverConfig(backend=backend, symmetric=True, interpret=True)
+            want = max_eigenvalue(A, cfg)
+            got = max_eigenvalue(corrupted, cfg)
+            assert float(got.eigenvalue) == float(want.eigenvalue), backend
+            assert int(got.rounds) == int(want.rounds), backend
 
     def test_auto_consumes_the_declaration_on_cpu(self):
-        """Under backend='auto' off-TPU the dense backends win; declaring
-        symmetry must neither raise nor change the answer."""
+        """Under backend='auto' on the CPU the dense product keeps the job;
+        declaring symmetry must neither raise nor change the answer."""
         H = fixtures.hilbert_matrix(256)
         want = max_eigenvalue(H)
         got = max_eigenvalue(H, SolverConfig(symmetric=True))
@@ -456,11 +261,8 @@ class TestConfigRouting:
 
     def test_explicit_other_backend_rejects(self):
         H = fixtures.hilbert_matrix(128)
-        for backend in ("matvec", "matvec_pallas", "xla", "pallas"):
-            with pytest.raises(ValueError, match="symmetric"):
-                max_eigenvalue(
-                    H, SolverConfig(backend=backend, symmetric=True)
-                )
+        with pytest.raises(ValueError, match="symmetric"):
+            max_eigenvalue(H, SolverConfig(backend="xla", symmetric=True))
 
     def test_validate_checks_the_promise(self):
         A = np.array(_sym(128))  # writable copy
@@ -468,10 +270,7 @@ class TestConfigRouting:
         with pytest.raises(ValueError, match="not bitwise symmetric"):
             max_eigenvalue(
                 jnp.asarray(A),
-                SolverConfig(
-                    backend="multiround", symmetric=True, interpret=True,
-                    block_rows=128,
-                ),
+                SolverConfig(backend="multiround", symmetric=True, interpret=True),
                 validate=True,
             )
 
@@ -485,7 +284,7 @@ class TestConfigRouting:
             max_eigenvalue(H, SolverConfig(symmetric=True), mesh=mesh)
 
     def test_batch_and_operator_reject(self):
-        from eigen_value_tpu import (
+        from eigen_value import (
             max_eigenvalue_batch,
             max_eigenvalue_operator,
         )
@@ -498,83 +297,3 @@ class TestConfigRouting:
             max_eigenvalue_operator(
                 lambda x: A @ x, 64, SolverConfig(symmetric=True)
             )
-
-
-def test_mixed_requires_cache():
-    """"mixed" carves its MXU share out of the resident tiles, so it
-    is rejected without a cache, and mxu_tiles is rejected without
-    "mixed" (the honored-or-rejected contract)."""
-    H = fixtures.hilbert_matrix(256)
-    with pytest.raises(ValueError, match="cache_tiles > 0"):
-        _solve_sym(H, formulation="mixed")
-    with pytest.raises(ValueError, match="mxu_tiles"):
-        _solve_sym(H, cache_tiles=2, mxu_tiles=1)
-
-
-def test_pipelined_fill_is_bit_exact():
-    """fill_mode='pipelined' (wait-at-first-use cache fill — retained
-    measured-negative rung, docs/BENCH_RESULTS.md round 5c) must be
-    bit-exact vs the prologue fill; the knob is honored-or-rejected."""
-    H = fixtures.hilbert_matrix(512)
-    want = _solve_sym(H, cache_tiles=6)
-    got = _solve_sym(H, cache_tiles=6, fill_mode="pipelined")
-    assert int(got.rounds) == int(want.rounds)
-    assert float(got.eigenvalue) == float(want.eigenvalue)
-    np.testing.assert_array_equal(
-        np.asarray(got.eigenvector), np.asarray(want.eigenvector)
-    )
-    # combined with mixed: the MXU share's issue/wait path runs only
-    # when both knobs are set
-    both = _solve_sym(
-        H, cache_tiles=6, fill_mode="pipelined", formulation="mixed",
-        mxu_tiles=2,
-    )
-    assert int(both.rounds) == int(want.rounds)
-    assert float(both.eigenvalue) == pytest.approx(
-        float(want.eigenvalue), rel=1e-5
-    )
-    with pytest.raises(ValueError, match="cache_tiles > 0"):
-        _solve_sym(H, fill_mode="pipelined")
-    with pytest.raises(ValueError, match="unknown fill_mode"):
-        _solve_sym(H, cache_tiles=2, fill_mode="bogus")
-
-
-def test_pipelined_fill_depth_cap():
-    """Configs whose two-step in-flight bound exceeds the 8-deep DMA
-    queue budget are REJECTED (low-T dense mode would otherwise start
-    arbitrarily many concurrent fill DMAs), and 'mixed' without a cache
-    is rejected on the pure-streaming path too."""
-    A = jnp.asarray(
-        np.random.default_rng(7).random((384, 384), np.float32) + 0.1
-    )
-    with pytest.raises(ValueError, match="in flight"):
-        solve_multiround(
-            A, EPS, MAX_ITR, chunk=5, interpret=True, tile=128,
-            cache_tiles=8, fill_mode="pipelined",
-        )
-    with pytest.raises(ValueError, match="cache_tiles > 0"):
-        solve_multiround(
-            A, EPS, MAX_ITR, chunk=5, interpret=True,
-            formulation="mixed",
-        )
-
-
-def test_kernel_level_knob_validation():
-    """Direct kernel use (bypassing SolverConfig) still rejects typo'd
-    eps_mode and clamps a negative cache_tiles to no-cache instead of
-    Python-negative-slicing most of the triangle into VMEM (review
-    r5c)."""
-    from eigen_value_tpu.ops.pallas.kernels import sym_cache_split
-
-    H = fixtures.hilbert_matrix(256)
-    with pytest.raises(ValueError, match="eps_mode"):
-        solve_multiround(
-            H, EPS, MAX_ITR, chunk=4, interpret=True, symmetric=True,
-            tile=128, eps_mode="rel",
-        )
-    with pytest.raises(ValueError, match="eps_mode"):
-        solve_multiround(H, EPS, MAX_ITR, chunk=4, interpret=True,
-                         eps_mode="rel")
-    streamed, cached = sym_cache_split(8192, 512, -1)
-    assert cached == ()
-    assert len(streamed) == 136

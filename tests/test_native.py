@@ -4,8 +4,8 @@ oracle and the reference anchors."""
 import numpy as np
 import pytest
 
-from eigen_value_tpu import native
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value import native
+from eigen_value.reference_impl import parallel_oracle
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"

@@ -1,4 +1,4 @@
-"""Oracle tests: pin the reference semantics before anything TPU-shaped.
+"""Oracle tests: pin the reference semantics before anything device-shaped.
 
 Anchors come straight from the reference (tests/test.cpp:79-104,
 main.py:52-58, README round tables) — see SURVEY.md §0/§4.
@@ -7,7 +7,7 @@ main.py:52-58, README round tables) — see SURVEY.md §0/§4.
 import numpy as np
 import pytest
 
-from eigen_value_tpu.reference_impl import parallel_oracle, sequential_oracle
+from eigen_value.reference_impl import parallel_oracle, sequential_oracle
 
 EPS = 1e-3
 

@@ -1,4 +1,4 @@
-"""Oracle CLI smoke test — `python -m eigen_value_tpu.oracle` reproduces
+"""Oracle CLI smoke test — `python -m eigen_value.oracle` reproduces
 the reference's sequential-harness report (main.py:62-70 timing sweep with
 the np.linalg.eigvals cross-check and the 3×3 handwritten assert)."""
 
@@ -18,7 +18,7 @@ def test_oracle_cli_runs_and_reports(semantics):
         [
             sys.executable,
             "-m",
-            "eigen_value_tpu.oracle",
+            "eigen_value.oracle",
             "--semantics",
             semantics,
             "--min-pow",

@@ -12,9 +12,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from eigen_value_tpu import fixtures
-from eigen_value_tpu.ops.solver import solve_xla
-from eigen_value_tpu.parallel import (
+from eigen_value import fixtures
+from eigen_value.ops.solver import solve_xla
+from eigen_value.parallel import (
     make_mesh2d,
     make_row_mesh,
     solve_batched,
@@ -25,7 +25,7 @@ from eigen_value_tpu.parallel import (
     solve_sharded_matvec,
     solve_sharded_matvec_ring,
 )
-from eigen_value_tpu.parallel.multihost import (
+from eigen_value.parallel.multihost import (
     elems_per_second,
     weak_scaling_efficiency,
 )
@@ -72,12 +72,11 @@ class TestSharded:
             make_row_mesh(4096)
 
     def test_sharded_pallas_matvec_nonpow2_blocks(self):
-        """use_pallas with a 768-row shard (not divisible by the 512
-        default block) must adapt the tile shape; runs interpreted on the
-        CPU mesh."""
+        """A 384-row shard of a 768² matrix (no power of two) solves with
+        the single-device round count and λ."""
         H = fixtures.hilbert_matrix(768)
         want = solve_xla(H, EPS, MAX_ITR)
-        got = solve_sharded_matvec(H, cpu_mesh(2), use_pallas=True)
+        got = solve_sharded_matvec(H, cpu_mesh(2))
         assert int(got.rounds) == int(want.rounds)
         assert bool(got.converged)
         assert abs(float(got.eigenvalue) - float(want.eigenvalue)) < 1e-3
@@ -190,7 +189,7 @@ class TestSharded2D:
         round-count contract — see TestRowShardedStorageDtype's rationale);
         Hilbert, where the eps stop is relatively loose, stays within ±1
         round."""
-        from eigen_value_tpu.config import SolverConfig
+        from eigen_value.config import SolverConfig
 
         cfg = SolverConfig(storage_dtype=jnp.bfloat16)
         mat = jnp.asarray(rng.random((256, 256), dtype=np.float32) + 1e-2)
@@ -221,7 +220,7 @@ class TestSharded2D:
     def test_api_mesh_dispatch(self):
         """max_eigenvalue(mesh=...) routes a rows×cols mesh to the 2D
         block-sharded solver (and keeps round parity)."""
-        from eigen_value_tpu import max_eigenvalue
+        from eigen_value import max_eigenvalue
 
         H = fixtures.hilbert_matrix(256)
         res = max_eigenvalue(H, mesh=make_mesh2d(2, 4))
@@ -231,7 +230,7 @@ class TestSharded2D:
     def test_api_cols_only_mesh_raises(self):
         """A cols-only mesh gets a clear ValueError (not a KeyError from
         deep inside shard_map) telling the caller to add a rows axis."""
-        from eigen_value_tpu import max_eigenvalue
+        from eigen_value import max_eigenvalue
 
         H = fixtures.hilbert_matrix(128)
         with pytest.raises(ValueError, match="rows"):
@@ -328,7 +327,7 @@ class TestBatchedMixedConvergence:
         mats = jnp.asarray(
             np.stack([rng.random((96, 96), dtype=np.float32) + 1e-4 for _ in range(4)])
         )
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec
+        from eigen_value.ops.solver_matvec import solve_matvec
 
         cap = 2  # below the ~3-4 rounds these need
         got = solve_batched(mats, EPS, cap)
@@ -349,7 +348,7 @@ class TestBatchedMixedConvergence:
 def test_batched_storage_dtype_fast_mode(rng):
     """max_eigenvalue_batch honors SolverConfig.storage_dtype (bf16 fast
     mode per matrix; f32 state; near-parity rounds)."""
-    from eigen_value_tpu import SolverConfig, max_eigenvalue_batch
+    from eigen_value import SolverConfig, max_eigenvalue_batch
 
     mats = rng.random((3, 128, 128), dtype=np.float32) + 1e-2
     got = max_eigenvalue_batch(mats, SolverConfig(storage_dtype=jnp.bfloat16))
@@ -362,7 +361,7 @@ def test_batched_storage_dtype_fast_mode(rng):
 
 
 def test_batched_sharded_storage_dtype(rng):
-    from eigen_value_tpu import SolverConfig
+    from eigen_value import SolverConfig
 
     mats = jnp.asarray(rng.random((8, 64, 64), dtype=np.float32) + 1e-2)
     mesh = cpu_mesh(4, axis="batch")
@@ -404,12 +403,12 @@ class TestRowShardedStorageDtype:
 
     @staticmethod
     def _storage_want(mat):
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec_storage
+        from eigen_value.ops.solver_matvec import solve_matvec_storage
 
         return solve_matvec_storage(mat, EPS, MAX_ITR)
 
     def test_sharded_matvec(self, rng):
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         mat = jnp.asarray(rng.random((256, 256), dtype=np.float32) + 1e-2)
         want = solve_xla(mat, EPS, MAX_ITR)
@@ -421,7 +420,7 @@ class TestRowShardedStorageDtype:
     def test_sharded_matvec_prequantized_input(self, rng):
         """A matrix already in bf16 solves without an f32 copy (the
         shard-scale memory story) and agrees with the cast-from-f32 path."""
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         cfg = SolverConfig(storage_dtype=jnp.bfloat16)
         mat = jnp.asarray(rng.random((128, 128), dtype=np.float32) + 1e-2)
@@ -431,7 +430,7 @@ class TestRowShardedStorageDtype:
         assert float(a.eigenvalue) == pytest.approx(float(b.eigenvalue), rel=1e-6)
 
     def test_ring(self, rng):
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         mat = jnp.asarray(rng.random((256, 256), dtype=np.float32) + 1e-2)
         want = solve_xla(mat, EPS, MAX_ITR)
@@ -455,7 +454,7 @@ class TestRowShardedStorageDtype:
         )
 
     def test_batched_rowsharded(self, rng):
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         mats = jnp.asarray(rng.random((4, 128, 128), dtype=np.float32) + 1e-2)
         mesh = Mesh(
@@ -474,7 +473,7 @@ class TestRowShardedStorageDtype:
     def test_api_mesh_path_honors_storage_dtype(self, rng):
         """max_eigenvalue(mesh=...) + SolverConfig(storage_dtype=bf16) runs
         the reduced-precision sharded solve (ADVICE r1: was silently f32)."""
-        from eigen_value_tpu import SolverConfig, max_eigenvalue
+        from eigen_value import SolverConfig, max_eigenvalue
 
         mat = jnp.asarray(rng.random((128, 128), dtype=np.float32) + 1e-2)
         cfg = SolverConfig(storage_dtype=jnp.bfloat16)
@@ -491,14 +490,14 @@ class TestHostMajorValidation:
     trusted (ADVICE r1): interleaved-process meshes must raise."""
 
     def test_sorted_sequences_pass(self):
-        from eigen_value_tpu.parallel.multihost import _require_host_major
+        from eigen_value.parallel.multihost import _require_host_major
 
         _require_host_major([0, 0, 0, 0])
         _require_host_major([0, 0, 1, 1])
         _require_host_major([0, 1, 2, 3])
 
     def test_interleaved_raises(self):
-        from eigen_value_tpu.parallel.multihost import _require_host_major
+        from eigen_value.parallel.multihost import _require_host_major
 
         with pytest.raises(ValueError, match="host-major"):
             _require_host_major([0, 1, 0, 1])
@@ -508,8 +507,8 @@ class TestHostMajorValidation:
     def test_assemble_on_valid_single_process_mesh(self):
         """The real assemble path on the (single-process) CPU mesh still
         works — every device has process_index 0, trivially host-major."""
-        from eigen_value_tpu.parallel.multihost import assemble_rowsharded
-        from eigen_value_tpu.parallel.sharded import solve_sharded_matvec
+        from eigen_value.parallel.multihost import assemble_rowsharded
+        from eigen_value.parallel.sharded import solve_sharded_matvec
 
         H = np.asarray(fixtures.hilbert_matrix(128))
         mesh = cpu_mesh(4)
@@ -522,8 +521,8 @@ class TestHostMajorValidation:
         ELEMENTWISE equal to the source matrix (a wrong (i, j) offset would
         still solve 'something' — equality is the real check), and the 2D
         solve on it keeps round parity."""
-        from eigen_value_tpu.parallel.multihost import assemble_blocksharded
-        from eigen_value_tpu.parallel.sharded import make_mesh2d, solve_sharded_2d
+        from eigen_value.parallel.multihost import assemble_blocksharded
+        from eigen_value.parallel.sharded import make_mesh2d, solve_sharded_2d
 
         H = np.asarray(fixtures.hilbert_matrix(128))
         mesh = make_mesh2d(2, 4)
@@ -533,8 +532,8 @@ class TestHostMajorValidation:
         assert int(got.rounds) == fixtures.HILBERT_ROUNDS[128]
 
     def test_assemble_blocksharded_rejects_bad_shapes(self):
-        from eigen_value_tpu.parallel.multihost import assemble_blocksharded
-        from eigen_value_tpu.parallel.sharded import make_mesh2d
+        from eigen_value.parallel.multihost import assemble_blocksharded
+        from eigen_value.parallel.sharded import make_mesh2d
 
         mesh = make_mesh2d(2, 4)
         with pytest.raises(ValueError, match="not divisible"):
@@ -545,15 +544,15 @@ class TestHostMajorValidation:
     def test_assemble_rowsharded_rejects_2d_mesh(self):
         """A 2D mesh's P(rows, None) would REPLICATE chunks this function
         places as distinct blocks — must raise, not corrupt placement."""
-        from eigen_value_tpu.parallel.multihost import assemble_rowsharded
-        from eigen_value_tpu.parallel.sharded import make_mesh2d
+        from eigen_value.parallel.multihost import assemble_rowsharded
+        from eigen_value.parallel.sharded import make_mesh2d
 
         mesh = make_mesh2d(2, 4)
         with pytest.raises(ValueError, match="1-D mesh"):
             assemble_rowsharded(np.ones((128, 128), np.float32), mesh)
 
     def test_assemble_rowsharded_rejects_missing_axis(self):
-        from eigen_value_tpu.parallel.multihost import assemble_rowsharded
+        from eigen_value.parallel.multihost import assemble_rowsharded
 
         mesh = cpu_mesh(4)  # axis 'rows'
         with pytest.raises(ValueError, match="no 'x' axis"):
@@ -565,14 +564,14 @@ class TestMeshAxisValidation:
     (previously a bare KeyError from mesh.shape) — mirroring the 2D path."""
 
     def test_solve_sharded_matvec_names_the_axis(self):
-        from eigen_value_tpu.parallel.sharded import solve_sharded_matvec
+        from eigen_value.parallel.sharded import solve_sharded_matvec
 
         H = fixtures.hilbert_matrix(128)
         with pytest.raises(ValueError, match="no 'wrong' axis"):
             solve_sharded_matvec(H, cpu_mesh(4), axis_name="wrong")
 
     def test_ring_and_iterated_name_the_axis(self):
-        from eigen_value_tpu.parallel.sharded import (
+        from eigen_value.parallel.sharded import (
             solve_sharded,
             solve_sharded_matvec_ring,
         )
@@ -591,7 +590,7 @@ class TestDirectCallContract:
     input."""
 
     def test_non_square_rejected_everywhere(self):
-        from eigen_value_tpu.parallel import solve_sharded_2d
+        from eigen_value.parallel import solve_sharded_2d
 
         bad = jnp.ones((8, 16), jnp.float32)
         mesh = cpu_mesh(2)
@@ -599,13 +598,13 @@ class TestDirectCallContract:
                       solve_sharded_matvec_ring):
             with pytest.raises(ValueError, match="square matrix"):
                 entry(bad, mesh)
-        from eigen_value_tpu.parallel.sharded import make_mesh2d
+        from eigen_value.parallel.sharded import make_mesh2d
 
         with pytest.raises(ValueError, match="square matrix"):
             solve_sharded_2d(bad, make_mesh2d(2, 4))
 
     def test_single_chip_knobs_rejected(self):
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         H = fixtures.hilbert_matrix(128)
         mesh = cpu_mesh(2)

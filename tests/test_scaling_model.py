@@ -1,14 +1,16 @@
-"""Analytical scaling model: calibration and limiting behavior."""
+"""Analytical scaling model: its published-figure anchor and limiting
+behavior."""
 
 import pytest
 
-from eigen_value_tpu.utils import scaling_model as sm
+from eigen_value.utils import scaling_model as sm
 
 
 def test_single_chip_calibration():
-    """P=1 must reproduce the measured per-round time (0.326 ms at 8192²,
-    docs/BENCH_RESULTS.md) within the model's ~5% calibration slack."""
-    assert sm.round_time_us(8192, 1) == pytest.approx(326, rel=0.05)
+    """P=1 is the bandwidth-bound product at the published H100 peak:
+    8192²·4 B at 3.35 TB/s ≈ 80 µs per round."""
+    assert sm.DEFAULT_SPEC.hbm_gbps == 3350.0
+    assert sm.round_time_us(8192, 1) == pytest.approx(8192 * 8192 * 4 / 3350e3)
     assert sm.scaling_efficiency(8192, 1) == 1.0
 
 
@@ -33,10 +35,13 @@ def test_bigger_problems_scale_better():
 
 
 def test_north_star_prediction_80pct_at_two_hosts():
-    """BASELINE config 5 regime (32768², ≥2 hosts): the model predicts the
-    ≥80% weak-scaling target is met for both exchange forms."""
-    assert sm.scaling_efficiency(32768, 16, hosts=2, ring=False) > 0.8
+    """BASELINE config 5 regime (32768², ≥2 hosts): on H100 figures the
+    per-round product is short (~80 µs on 16 cards), so the model meets
+    the ≥80% target only with the ring form, which hides the exchange
+    behind the chunk products; the gathered form pays its step latencies
+    in full."""
     assert sm.scaling_efficiency(32768, 16, hosts=2, ring=True) > 0.8
+    assert sm.scaling_efficiency(32768, 16, hosts=2, ring=False) < 0.8
 
 
 def test_overlap_fully_hides_ici_for_large_chunks():
@@ -46,71 +51,10 @@ def test_overlap_fully_hides_ici_for_large_chunks():
 
 
 class TestCalibration:
-    """Round-2 calibration machinery (VERDICT r1 item 7)."""
-
-    def test_fit_recovers_synthetic_parameters(self):
-        from eigen_value_tpu.utils.scaling_model import (
-            ChipSpec,
-            fit_exchange,
-            gather_exchange_us,
-        )
-
-        spec = ChipSpec(ici_gbps=123.0, ici_latency_us=7.5)
-        p = 8
-        measured = {
-            n: gather_exchange_us(n, p, 1, spec)
-            for n in (8192, 65536, 524288)
-        }
-        gbps, lat = fit_exchange(measured, p, spec.itemsize)
-        assert gbps == pytest.approx(123.0, rel=1e-6)
-        assert lat == pytest.approx(7.5, rel=1e-6)
-
-    def test_fit_latency_dominated_regime(self):
-        """Flat-in-n measurements (gloo loopback) give an unresolvable
-        bandwidth (inf) and a clean latency estimate."""
-        from eigen_value_tpu.utils.scaling_model import fit_exchange
-
-        gbps, lat = fit_exchange({8192: 5600.0, 32768: 5600.0}, 8)
-        assert gbps == float("inf")
-        assert lat == pytest.approx(5600.0 / 7)
-
-    def test_calibration_rows_rfc_safe(self):
-        import json
-
-        from eigen_value_tpu.utils.scaling_model import calibration_rows
-
-        rows = calibration_rows({8192: 5600.0, 32768: 5600.0}, 8)
-        for r in rows:
-            json.dumps(r, allow_nan=False)  # raises on inf/nan
-        fit = [r for r in rows if r["bench"] == "model_calibration_fit"][0]
-        assert fit["fit_gbps"] is None
-
-    def test_calibration_rows_explicit_spec_skips_refit(self):
-        """Passing a spec must use ITS parameters for both the fit row and
-        the predictions (the calibrate suite fits once and reuses that spec
-        for the cross-P check; a silent refit could drift from it)."""
-        import dataclasses
-
-        from eigen_value_tpu.utils.scaling_model import (
-            DEFAULT_SPEC,
-            calibration_rows,
-            gather_exchange_us,
-        )
-
-        spec = dataclasses.replace(DEFAULT_SPEC, ici_gbps=3.0, ici_latency_us=42.0)
-        measured = {8192: 5600.0, 32768: 9000.0}
-        rows = calibration_rows(measured, 8, spec=spec)
-        fit = [r for r in rows if r["bench"] == "model_calibration_fit"][0]
-        assert fit["fit_gbps"] == 3.0
-        assert fit["fit_latency_us"] == 42.0
-        for r in rows:
-            if r["bench"] == "model_calibration":
-                assert r["predicted_us"] == pytest.approx(
-                    gather_exchange_us(r["dim"], 8, 1, spec)
-                )
+    """The sensitivity sweep over the assumed link parameters."""
 
     def test_sensitivity_table_covers_grid(self):
-        from eigen_value_tpu.utils.scaling_model import sensitivity_table
+        from eigen_value.utils.scaling_model import sensitivity_table
 
         rows = sensitivity_table(chip_counts=(16,))
         assert len(rows) == 4 * 4 * 2  # gbps x latency x solver form
@@ -119,15 +63,15 @@ class TestCalibration:
         g = [
             r
             for r in rows
-            if r["solver"] == "matvec_gather" and r["ici_gbps"] == 400.0
+            if r["solver"] == "matvec_gather" and r["link_gbps"] == 450.0
         ]
-        effs = [r["efficiency"] for r in sorted(g, key=lambda r: r["ici_latency_us"])]
+        effs = [r["efficiency"] for r in sorted(g, key=lambda r: r["link_latency_us"])]
         assert effs == sorted(effs, reverse=True)
 
 
 class TestModel2D:
     def test_balanced_factorization(self):
-        from eigen_value_tpu.utils.scaling_model import balanced_factorization
+        from eigen_value.utils.scaling_model import balanced_factorization
 
         assert balanced_factorization(1) == (1, 1)
         assert balanced_factorization(8) == (2, 4)
@@ -138,7 +82,7 @@ class TestModel2D:
     def test_degenerate_cols_axis_equals_gather_form(self):
         """pc=1 has no psum: the 2D round time must equal the 1D gathered
         form with p=pr shards (same local GEMV, same rows gather)."""
-        from eigen_value_tpu.utils.scaling_model import (
+        from eigen_value.utils.scaling_model import (
             round_time_2d_us,
             round_time_us,
         )
@@ -149,7 +93,7 @@ class TestModel2D:
             )
 
     def test_pure_column_sharding_pays_psum_only(self):
-        from eigen_value_tpu.utils.scaling_model import (
+        from eigen_value.utils.scaling_model import (
             exchange_2d_us,
             gather_exchange_us,
         )
@@ -159,7 +103,7 @@ class TestModel2D:
         assert exchange_2d_us(4096, 1, 8) > 0.0
 
     def test_prediction_table_includes_2d_rows(self):
-        from eigen_value_tpu.utils.scaling_model import prediction_table
+        from eigen_value.utils.scaling_model import prediction_table
 
         rows = prediction_table(dims=[8192], chip_counts=(1, 8))
         solvers = {r["solver"] for r in rows}

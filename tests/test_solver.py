@@ -6,9 +6,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from eigen_value_tpu import fixtures
-from eigen_value_tpu.ops.solver import solve_xla
-from eigen_value_tpu.reference_impl import parallel_oracle
+from eigen_value import fixtures
+from eigen_value.ops.solver import solve_xla
+from eigen_value.reference_impl import parallel_oracle
 
 EPS = 1e-3
 MAX_ITR = 1000
@@ -81,14 +81,14 @@ class TestRelativeStop:
     default."""
 
     def test_config_validates_eps_mode(self):
-        from eigen_value_tpu import SolverConfig
+        from eigen_value import SolverConfig
 
         assert SolverConfig(eps_mode="relative").eps_mode == "relative"
         with pytest.raises(ValueError, match="eps_mode"):
             SolverConfig(eps_mode="rel")
 
     def test_stop_check_relative_semantics(self):
-        from eigen_value_tpu.ops.solver import stop_check
+        from eigen_value.ops.solver import stop_check
 
         v = jnp.asarray([1000.0, 1000.4, 1000.2], jnp.float32)
         assert not bool(stop_check(v, 1e-3))  # absolute: 0.4 > 1e-3
@@ -101,7 +101,7 @@ class TestRelativeStop:
         give the SAME rounds at any scale, where absolute mode's rounds
         drift with α (that drift is the reference's semantics, kept as
         the default)."""
-        from eigen_value_tpu.ops.solver_matvec import solve_matvec
+        from eigen_value.ops.solver_matvec import solve_matvec
 
         A = jnp.asarray(rng.random((128, 128), dtype=np.float32) + 0.1)
         r1 = solve_matvec(A, EPS, MAX_ITR, eps_mode="relative")
@@ -117,7 +117,7 @@ class TestRelativeStop:
         λ ~ 10⁶ the f32 matvec rounding noise (~λ·2⁻²⁴·n) exceeds the
         absolute eps=1e-3 so the stop never fires; relative mode
         converges and the eigen-pair is correct."""
-        from eigen_value_tpu import SolverConfig, max_eigenvalue_operator
+        from eigen_value import SolverConfig, max_eigenvalue_operator
 
         n = 256
         A = rng.random((n, n), dtype=np.float32) + np.float32(0.1)
@@ -138,7 +138,7 @@ class TestRelativeStop:
         """The default config's rounds are the parity table's — adding
         eps_mode must not perturb the absolute path (guards accidental
         default flips)."""
-        from eigen_value_tpu import SolverConfig, max_eigenvalue
+        from eigen_value import SolverConfig, max_eigenvalue
 
         res = max_eigenvalue(fixtures.hilbert_matrix(256), SolverConfig())
         assert int(res.rounds) == fixtures.HILBERT_ROUNDS[256]
@@ -148,8 +148,8 @@ class TestRelativeStop:
         eps_mode='relative'; a large-λ matrix that needs multi-chip
         memory now has a sound stop.  Absolute mode cap-exhausts on the
         same input (λ ≈ 1e6·n/2 ⇒ f32 row-sum noise ≫ eps)."""
-        from eigen_value_tpu import SolverConfig, max_eigenvalue
-        from eigen_value_tpu.parallel.sharded import make_row_mesh
+        from eigen_value import SolverConfig, max_eigenvalue
+        from eigen_value.parallel.sharded import make_row_mesh
 
         A = jnp.asarray(rng.random((128, 128), dtype=np.float32) + 0.1)
         A = A * jnp.float32(1e6)
@@ -174,8 +174,8 @@ def test_f64_end_to_end(rng):
     with numpy's eigensolver to stop-tolerance accuracy."""
     import jax
 
-    from eigen_value_tpu import SolverConfig, max_eigenvalue
-    from eigen_value_tpu.reference_impl import parallel_oracle, sequential_oracle
+    from eigen_value import SolverConfig, max_eigenvalue
+    from eigen_value.reference_impl import parallel_oracle, sequential_oracle
 
     mat = rng.random((96, 96)) + 0.1  # float64 numpy
     with jax.enable_x64():

@@ -3,7 +3,7 @@ report from the traced λ history, float64 host-side refinement.
 
 The reference's only outputs are (λ, v, ms, rounds)
 (wrapper/python/similarity_transform.py:42-78); these tests pin the extra
-observability/accuracy surface the TPU build adds on top.
+observability/accuracy surface this build adds on top.
 """
 
 import numpy as np
@@ -11,10 +11,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from eigen_value_tpu import fixtures, max_eigenvalue
-from eigen_value_tpu.config import EPS, MAX_ITR
-from eigen_value_tpu.ops.solver_matvec import solve_matvec_traced
-from eigen_value_tpu.ops.spectral import (
+from eigen_value import fixtures, max_eigenvalue
+from eigen_value.config import EPS, MAX_ITR
+from eigen_value.ops.solver_matvec import solve_matvec_traced
+from eigen_value.ops.spectral import (
     convergence_report,
     operator_residual,
     power_eigenpair,
@@ -145,7 +145,7 @@ def test_operator_traced_matches_dense_traced():
     to solve_matvec_traced (same loop body by construction)."""
     import jax
 
-    from eigen_value_tpu.ops.solver_matvec import solve_operator_traced
+    from eigen_value.ops.solver_matvec import solve_operator_traced
 
     n = 128
     H = fixtures.hilbert_matrix(n)
@@ -161,8 +161,8 @@ def test_operator_traced_matches_dense_traced():
 def test_operator_traced_rate_matches_dense_rate():
     """The convergence-rate estimate through the FFT Hankel operator
     agrees with the dense solver's (same matrix, same asymptote)."""
-    from eigen_value_tpu.ops.solver_matvec import solve_operator_traced
-    from eigen_value_tpu.ops.structured import hilbert_matvec
+    from eigen_value.ops.solver_matvec import solve_operator_traced
+    from eigen_value.ops.structured import hilbert_matvec
 
     n = 64
     res_d, hist_d = solve_matvec_traced(fixtures.hilbert_matrix(n), 1e-6, 200)
@@ -291,7 +291,7 @@ class TestSubdominantEigenpair:
 
 class TestTopKEigenpairs:
     def test_hilbert_top4_matches_numpy(self):
-        from eigen_value_tpu.ops.spectral import top_k_eigenpairs
+        from eigen_value.ops.spectral import top_k_eigenpairs
 
         n = 64
         H = fixtures.hilbert_matrix(n)
@@ -310,7 +310,7 @@ class TestTopKEigenpairs:
         assert np.all(top.residuals <= 1e-3 * w[0])
 
     def test_k1_is_the_refined_dominant(self):
-        from eigen_value_tpu.ops.spectral import top_k_eigenpairs
+        from eigen_value.ops.spectral import top_k_eigenpairs
 
         n = 32
         H = fixtures.hilbert_matrix(n)
@@ -321,7 +321,7 @@ class TestTopKEigenpairs:
         assert top.ratios[0] == 1.0
 
     def test_k2_matches_subdominant(self):
-        from eigen_value_tpu.ops.spectral import top_k_eigenpairs
+        from eigen_value.ops.spectral import top_k_eigenpairs
 
         n = 48
         H = fixtures.hilbert_matrix(n)
@@ -331,7 +331,7 @@ class TestTopKEigenpairs:
         assert top.eigenvalues[1] == pytest.approx(sub.eigenvalue, rel=1e-3)
 
     def test_validates_inputs(self):
-        from eigen_value_tpu.ops.spectral import top_k_eigenpairs
+        from eigen_value.ops.spectral import top_k_eigenpairs
 
         res = max_eigenvalue(fixtures.hilbert_matrix(4))
         with pytest.raises(ValueError, match="k >= 1"):
